@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (kubernetes_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device and nvcc (CUDA_HOME, default /usr/local/cuda). It
+exits non-zero, without a result line, when either is missing or any
+phase fails. Phases:
+
+  1. build both CUDA kernels from csrc/ and print the card and its power
+     limit;
+  2. hold each kernel against its plain PyTorch version on the card
+     (exact equality) at the main path's shapes and at ragged ones, and
+     time kernel, plain version, library yardstick and bound;
+  3. run the wave engine at 512 nodes x 3,000 binpack pods on the card and
+     on the CPU: every placement, fit count and the RR counter agree;
+  4. the main path: drain 30,000 density pods, then 30,000 binpack pods
+     (fresh cache), on 5,000 hollow nodes through
+     SchedulingEngine.schedule(mode="wave"), and audit the placements from
+     the cache (capacity, pod caps, unplaced pods fit nowhere);
+  5. the extender verdict: evaluate_pod for affinity probes against a
+     5,000-node cluster holding 3,000 bound mixed-affinity pods, on the
+     card and on the CPU: fits and scores agree;
+  6. print the per-kernel summary line, then the result line.
+
+Launch counts are zeroed just before each main-path run (phases 4 and 5)
+and read just after it; launches made by the comparisons do not count.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
+# kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate for their type
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12      # float32 outside the tensor cores
+INT8_TENSOR_OPS_PER_S = 1979e12  # int8 tensor cores
+
+N_NODES = 5000
+N_PODS = 30000
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_facts() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0] if out else ""
+
+
+def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over `rounds` of (CUDA-event time of `reps` back-to-back
+    calls) / reps, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / reps)
+    return statistics.median(per)
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def abs_err(got, want) -> int:
+    """max |kernel - plain| over the cells (synchronises the device)."""
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+def capacity_operands(rng, p, n, r, dev):
+    """Requests, allocatable and requested columns with nodes with and
+    without overlay capacity and requests sitting exactly on the limit."""
+    import numpy as np
+    import torch
+    alloc = rng.integers(0, 5000, size=(n, r)).astype(np.int32)
+    alloc[rng.random(n) < 0.5, 4] = 0                  # no overlay
+    requested = (alloc * rng.random((n, r))).astype(np.int32)
+    req = rng.integers(0, 2500, size=(p, r)).astype(np.int32)
+    req[rng.random(p) < 0.2] = 0                       # zero requests
+    if p and n:
+        # some (pod, node) pairs land exactly on the limit
+        k = min(p, n)
+        req[:k] = alloc[:k] - requested[:k]
+    t = [torch.from_numpy(x).to(dev) for x in (req, alloc, requested)]
+    return t
+
+
+def check_kernels(kernels, extender_ops):
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    max_err = {"capacity_fit": 0, "incidence_matmul": 0}
+    checks = 0
+    shapes = [(16, N_NODES, 5), (16, N_NODES, 7)]
+    shapes += [(p, n, r) for p in (1, 7, 130) for n in (1, 255, 257, N_NODES)
+               for r in (5, 7)]
+    for p, n, r in shapes:
+        req, alloc, requested = capacity_operands(rng, p, n, r, dev)
+        got = kernels.capacity_fit(req, alloc, requested)
+        want = kernels.capacity_fit_plain(req, alloc, requested)
+        max_err["capacity_fit"] = max(max_err["capacity_fit"],
+                                      abs_err(got, want))
+        if not torch.equal(got, want):
+            fail(f"capacity_fit != plain at P={p} N={n} R={r}: "
+                 f"{int((got != want).sum())} cells differ")
+        checks += 1
+    log(f"capacity_fit == plain at {checks} shapes (exact)")
+
+    a_main, b_main = extender_ops
+    inc_shapes = [("evaluate_pod", a_main, b_main)]
+    for m in (640, 2560):
+        for l in (2048, 4096):
+            a = (rng.random((m, l)) < 0.02).astype(np.int32)
+            a[m // 2:] *= rng.integers(-100, 101, size=(m - m // 2, l)) \
+                .astype(np.int32)                      # weight rows
+            b = (rng.random((5120, l)) < 0.01).astype(np.int8)
+            inc_shapes.append((f"M={m} L={l}", torch.from_numpy(a).to(dev),
+                               torch.from_numpy(b).to(dev)))
+    for tag, a, b in inc_shapes:
+        got = kernels.incidence_matmul(a, b)
+        want = kernels.incidence_matmul_plain(a, b)
+        max_err["incidence_matmul"] = max(max_err["incidence_matmul"],
+                                          abs_err(got, want))
+        if not torch.equal(got, want):
+            fail(f"incidence_matmul != plain at {tag} "
+                 f"{tuple(a.shape)}x{tuple(b.shape)}")
+        log(f"incidence_matmul == plain at {tag} {tuple(a.shape)} x "
+            f"{tuple(b.shape)} (exact)")
+
+    # timings at the main path's shapes, plus the larger incidence shapes
+    req, alloc, requested = capacity_operands(rng, 16, N_NODES, 5, dev)
+    p, r = req.shape
+    n = alloc.shape[0]
+    cap = {
+        "ms": time_ms(lambda: kernels.capacity_fit(req, alloc, requested)),
+        "plain_ms": time_ms(
+            lambda: kernels.capacity_fit_plain(req, alloc, requested)),
+        "library_ms": None,
+        "bound_ms": 1e3 * max((4 * r * (p + 2 * n) + p * n) / HBM_BYTES_PER_S,
+                              p * n * (2 * r + 1) / CUDA_CORE_OPS_PER_S),
+        "bound_by": "bytes", "shape": f"P={p} N={n} R={r}",
+    }
+    inc = {}
+    for tag, a, b in inc_shapes:
+        m, l = a.shape
+        n = b.shape[0]
+        af, bf = a.float(), b.float()
+        by = (4 * m * l + n * l + 4 * m * n) / HBM_BYTES_PER_S
+        op = 2 * m * n * l / INT8_TENSOR_OPS_PER_S
+        row = {
+            "ms": time_ms(lambda: kernels.incidence_matmul(a, b)),
+            "plain_ms": time_ms(
+                lambda: kernels.incidence_matmul_plain(a, b)),
+            "library_ms": time_ms(lambda: torch.matmul(af, bf.T)),
+            "bound_ms": 1e3 * max(by, op),
+            "bound_by": "bytes" if by >= op else "operations",
+            "shape": f"M={m} N={n} L={l}",
+        }
+        log(f"incidence_matmul {tag}: " + json.dumps(row))
+        inc.setdefault("main", row)
+    log("capacity_fit: " + json.dumps(cap))
+    return {"capacity_fit": cap, "incidence_matmul": inc["main"]}, max_err
+
+
+# ---------------------------------------------------------------- phases 3-4
+
+
+def build_cache(nodes):
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    cache = SchedulerCache()
+    for nd in nodes:
+        cache.add_node(nd)
+    return cache
+
+
+def card_vs_cpu(hollow, SchedulingEngine):
+    results = []
+    for dev in ("cuda", "cpu"):
+        eng = SchedulingEngine(build_cache(hollow.hollow_nodes(512)),
+                               device=dev)
+        r = eng.schedule(hollow.binpack_pods(3000, seed=7), mode="wave")
+        results.append(([x.node_name for x in r], [x.fit_count for x in r],
+                        eng.rr.counter))
+    (s_g, f_g, c_g), (s_c, f_c, c_c) = results
+    if s_g != s_c or f_g != f_c or c_g != c_c:
+        diff = sum(a != b for a, b in zip(s_g, s_c))
+        fail(f"card and CPU runs differ: {diff} placements, "
+             f"RR {c_g} vs {c_c}")
+    log(f"card == CPU: 512 nodes x 3000 binpack pods, "
+        f"{sum(x is not None for x in s_g)} placed, RR counter {c_g}")
+
+
+def audit(cache, results, n_pods, require_all):
+    placed = sum(r.node_name is not None for r in results)
+    if require_all and placed != n_pods:
+        fail(f"{n_pods - placed} of {n_pods} pods unplaced")
+    for r in results:
+        if r.node_name is None and r.fit_count != 0:
+            fail(f"unplaced pod {r.pod.name} reports fit_count "
+                 f"{r.fit_count}")
+    for name, info in cache.node_infos().items():
+        node = info.node
+        cpu = sum(p.resource_request().milli_cpu for p in info.pods)
+        mem = sum(p.resource_request().memory for p in info.pods)
+        if cpu > node.allocatable.milli_cpu \
+                or mem > node.allocatable.memory \
+                or len(info.pods) > node.allowed_pod_number:
+            fail(f"node {name} over capacity: cpu {cpu}, mem {mem}, "
+                 f"pods {len(info.pods)}")
+    return placed
+
+
+def spans(prefix: str, per: int = 1) -> dict:
+    """Wall ms of the engine's timed spans under `prefix` since the last
+    COUNTERS.reset(), divided by `per`."""
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    snap = sorted(COUNTERS.snapshot().items())
+    return {k: 1e3 * t / per for k, (_, t) in snap
+            if k.startswith(prefix) and t > 0}
+
+
+def drain(hollow, kernels, SchedulingEngine, profile, card):
+    import torch
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    nodes = hollow.hollow_nodes(N_NODES)
+    cache = build_cache(nodes)
+    eng = SchedulingEngine(cache)   # device=None: the card
+    pods = getattr(hollow, f"{profile}_pods")(N_PODS)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    results = eng.schedule(pods, mode="wave")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    placed = audit(cache, results, N_PODS, require_all=profile == "density")
+    log(f"drain {profile}: {N_NODES} nodes x {N_PODS} pods, placed "
+        f"{placed}, waves {eng.last_wave_stats}, wall {wall:.3f} s, "
+        f"{N_PODS / wall:.0f} pods/s, launches {launches} [{card}]")
+    log(f"drain {profile} spans (ms): " + json.dumps(spans("engine.")))
+    # the capacity kernel against its plain version on the node state this
+    # drain left behind and on the profile's class rows
+    from kubernetes_tpu_torch.ops import predicates as preds
+    from kubernetes_tpu_torch.state.classes import ClassBatch
+    eng._refresh()
+    nd = eng._nodes_on_device()
+    fresh = getattr(hollow, f"{profile}_pods")(64, seed=1, namespace="chk")
+    cls = preds.pod_arrays_padded(ClassBatch(fresh, eng.snapshot).reps_batch,
+                                  16, torch.device("cuda"))
+    if not torch.equal(
+            kernels.capacity_fit(cls["req"], nd["alloc"], nd["requested"]),
+            kernels.capacity_fit_plain(cls["req"], nd["alloc"],
+                                       nd["requested"])):
+        fail(f"capacity_fit != plain on the {profile} drain's state")
+    return launches, wall
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def extender_cluster(hollow, types):
+    from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
+    nodes = hollow.hollow_nodes(N_NODES)
+    cache = build_cache(nodes)
+    for i, p in enumerate(hollow.mixed_affinity_pods(3000, seed=11)):
+        p.node_name = nodes[i % N_NODES].name
+        cache.add_pod(p)
+    snap = ClusterSnapshot()
+    snap.refresh(cache.node_infos())
+    wl = [types.WorkloadObject("Service", "web", "bench",
+                               match_labels={"app": "web-2"})]
+    probes = (hollow.mixed_affinity_pods(40, seed=12)[::2]
+              + hollow.affinity_pods(8, seed=13))
+    return cache, snap, wl, probes
+
+
+def incidence_operands(cache, snap, wl, probe, affinity, ClassBatch):
+    """The stacked A and the labels that evaluate_pod hands the incidence
+    kernel for `probe` (same host steps as evaluate_pod)."""
+    import torch
+    dev = torch.device("cuda")
+    infos = cache.node_infos()
+    all_pairs, aff_pairs = affinity.collect_pod_pairs(infos)
+    affinity.intern_topology_pairs(snap, [probe], aff_pairs)
+    batch = ClassBatch([probe], snap)
+    adata = affinity.AffinityData(batch.reps, snap, all_pairs, aff_pairs,
+                                  wl, 1)
+    a = affinity.stack_static(adata.device_arrays(dev))
+    b = torch.from_numpy(snap.labels.copy()).to(dev)
+    return a, b
+
+
+def verdicts(cache, snap, wl, probes, kernels, evaluate_pod, priorities,
+             card):
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    infos = cache.node_infos()
+    for p in probes:  # warm-up, and vocab growth lands before counting
+        evaluate_pod(p, infos, snap, priorities, wl)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    card_out, lat = [], []
+    for p in probes:
+        t0 = time.perf_counter()
+        m, s = evaluate_pod(p, infos, snap, priorities, wl)
+        lat.append(time.perf_counter() - t0)
+        card_out.append((m, s))
+    launches = dict(kernels.LAUNCHES)
+    per_call = spans("extender.", len(probes))
+    for p, (m, s) in zip(probes, card_out):
+        mc, sc = evaluate_pod(p, infos, snap, priorities, wl, device="cpu")
+        if not (np.array_equal(m, mc) and np.array_equal(s, sc)):
+            fail(f"evaluate_pod card != CPU for {p.name}")
+    log(f"evaluate_pod: {len(probes)} probes, card == CPU (fits and "
+        f"scores), verdict latency median {1e3 * statistics.median(lat):.2f}"
+        f" ms (min {1e3 * min(lat):.2f}), launches {launches} [{card}]")
+    log("evaluate_pod spans (mean ms per call): " + json.dumps(per_call))
+    return launches
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from kubernetes_tpu_torch.api import types
+        from kubernetes_tpu_torch.engine.scheduler_engine import (
+            SchedulingEngine, evaluate_pod)
+        from kubernetes_tpu_torch.models import hollow
+        from kubernetes_tpu_torch.ops import affinity, kernels
+        from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
+        from kubernetes_tpu_torch.state.classes import ClassBatch
+    except ImportError as e:
+        print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
+              f"({e})", file=sys.stderr)
+        return 3
+    # int_matmul needs full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off (torch.backends.cuda.matmul.allow_tf32 = False)")
+
+    # 1. build + card facts
+    t0 = time.perf_counter()
+    reports = kernels.build()
+    for name, rep in reports.items():
+        log(f"built {name}:")
+        for line in rep.splitlines():
+            if "ptxas info" in line:
+                log("  " + line.strip())
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    card = card_facts()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # 2. kernels vs plain versions (operands of the extender cluster first)
+    cache5, snap5, wl5, probes = extender_cluster(hollow, types)
+    ops = incidence_operands(cache5, snap5, wl5, probes[0], affinity,
+                             ClassBatch)
+    timing, max_err = check_kernels(kernels, ops)
+
+    # 3. card vs CPU
+    card_vs_cpu(hollow, SchedulingEngine)
+
+    # 4. the drains
+    launches_drain = {k: 0 for k in kernels.LAUNCHES}
+    walls = {}
+    for profile in ("density", "binpack"):
+        got, walls[profile] = drain(hollow, kernels, SchedulingEngine,
+                                    profile, card)
+        for k, v in got.items():
+            launches_drain[k] += v
+    if launches_drain["capacity_fit"] == 0:
+        fail("the drains never launched the capacity kernel")
+
+    # 5. the extender verdict
+    launches_eval = verdicts(cache5, snap5, wl5, probes, kernels,
+                             evaluate_pod, DEFAULT_PRIORITIES, card)
+    if launches_eval["incidence_matmul"] == 0:
+        fail("evaluate_pod never launched the incidence kernel")
+
+    # 6. summary
+    replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
+                "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
+    rows = []
+    for name in ("capacity_fit", "incidence_matmul"):
+        t = timing[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"kubernetes_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": launches_drain[name] + launches_eval[name],
+            "max_abs_err": max_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log(f"launches: drains {launches_drain}, verdicts {launches_eval}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
