@@ -10,8 +10,16 @@ phase fails. Phases:
   1. build both CUDA kernels from csrc/ and print the card and its power
      limit;
   2. hold each kernel against its plain PyTorch version on the card
-     (exact equality) at the main path's shapes and at ragged ones, and
-     time kernel, plain version, library yardstick and bound;
+     (exact equality) at the main path's shapes and at ragged ones; for
+     the incidence kernel also wide-weight rows (entries up to +-2^22),
+     int32 extremes whose sums still fit int32, L % 16 == 8, the
+     wrapper's padding of L and of misaligned operands, and a refused
+     launch plan. Time kernel, plain version, library yardstick and bound:
+     wrapper time of back-to-back calls, device time with the host's
+     enqueue hidden, and (incidence) device time of one call with L2
+     flushed (dirty, and clean after a read-back); the pre-pass's share
+     (profiler) and the launch plan per shape; capacity_fit's device-only
+     time from the profiler;
   3. run the wave engine at 512 nodes x 3,000 binpack pods on the card and
      on the CPU: every placement, fit count and the RR counter agree;
   4. the main path: drain 30,000 density pods, then 30,000 binpack pods
@@ -45,6 +53,8 @@ INT8_TENSOR_OPS_PER_S = 1979e12  # int8 tensor cores
 
 N_NODES = 5000
 N_PODS = 30000
+I32_MAX = 2 ** 31 - 1
+FLUSH_BYTES = 256 << 20     # written between cold launches; L2 is 50 MB
 
 
 def log(*a) -> None:
@@ -55,17 +65,24 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_facts() -> str:
+def card_facts(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()
     return out[0] if out else ""
 
 
+def log_clocks(when: str) -> None:
+    log(f"card {when}: sm clock, max sm clock, power draw, limit, "
+        f"temperature: " + card_facts(
+            "clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu"))
+
+
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
-    """Median over `rounds` of (CUDA-event time of `reps` back-to-back
-    calls) / reps, after a warm-up."""
+    """Wrapper time: median over `rounds` of (CUDA-event time of `reps`
+    back-to-back calls) / reps, after a warm-up. Where the host's path
+    through a call is longer than its device work, this is the host's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -80,6 +97,102 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         b.synchronize()
         per.append(a.elapsed_time(b) / reps)
     return statistics.median(per)
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def _spin(ms: float) -> None:
+    """Keep the stream busy for about `ms` (a spin kernel), so that what
+    the host enqueues meanwhile runs back to back after it."""
+    import torch
+    if not _SPIN_CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10_000_000 / a.elapsed_time(b))
+    torch.cuda._sleep(int(ms * _SPIN_CYCLES_PER_MS[0]))
+
+
+def time_device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time: as time_ms, but the calls are enqueued behind a spin
+    kernel, so the events bracket device work only (back to back, operands
+    warm in L2). The spin is doubled until the enqueue fits inside it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spin_ms, per = 2.0, []
+    while len(per) < rounds:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        _spin(spin_ms)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        b.synchronize()
+        if host_ms > 0.8 * spin_ms:
+            spin_ms *= 2
+            continue
+        per.append(a.elapsed_time(b) / reps)
+    return statistics.median(per)
+
+
+def time_cold_ms(fn, flush, clean: bool = False, reps: int = 15) -> float:
+    """Device time of one call with L2 cold: before each call, write the
+    `flush` buffer (larger than the 50 MB L2), then enqueue the call behind
+    a spin kernel and time it alone with its own events. Median. The
+    written lines sit dirty in L2, so the call also pays their write-back;
+    with clean=True the buffer is read back after it is written, which
+    leaves L2 holding clean lines of it and nothing of the operands."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        flush.fill_(1)
+        if clean:
+            flush.max()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        _spin(1.0)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b))
+    return statistics.median(per)
+
+
+def profile_kernels(fn, reps: int = 20):
+    """Mean device time per call (ms) of each CUDA kernel `fn` launches,
+    from torch.profiler; None where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = getattr(e, "cuda_time_total", 0)
+            if total > 0:
+                out[e.key] = total / 1e3 / reps
+        return out or None
+    except Exception as e:  # CUPTI may be unavailable; say so
+        log(f"torch.profiler recorded nothing: {type(e).__name__}: {e}")
+        return None
 
 
 # ---------------------------------------------------------------- phase 2
@@ -110,6 +223,146 @@ def capacity_operands(rng, p, n, r, dev):
     return t
 
 
+def incidence_check_operands(gen, m, n, l, dev):
+    """A [m, l] int32 and B_t [n, l] int8 for the exactness checks: 0/1
+    incidence rows, then (from m // 3) weight rows with entries up to
+    +-2^22, and int32 extremes whose sums still fit int32. The last row
+    holds -2^31 + 1 and 2^31 - 1; the one before it (the only row when
+    m = 1) holds 2^31 - 2, 1 and -1 against B_t columns that make its top
+    digit plane carry the kernel's recombination across the int32
+    boundary. Columns 0..4 of B_t follow fixed patterns, the rest are
+    random with 1% ones."""
+    import torch
+    a = (torch.rand((m, l), generator=gen, device=dev) < 0.3).to(torch.int32)
+    w0 = m // 3
+    a[w0:] *= torch.randint(-2 ** 22, 2 ** 22 + 1, (m - w0, l),
+                            generator=gen, device=dev, dtype=torch.int32)
+    extreme = [-I32_MAX, I32_MAX, 0, 0, 0]
+    carry = [0, 0, I32_MAX - 1, 1, -1]
+    for r, vals in ([(m - 1, extreme), (m - 2, carry)] if m > 1
+                    else [(0, carry)]):
+        a[r] = 0
+        a[r, :5] = torch.tensor(vals, dtype=torch.int32)
+    b = (torch.rand((n, l), generator=gen, device=dev) < 0.01).to(torch.int8)
+    i = torch.arange(n, device=dev)
+    b[:, 0] = (i % 2).to(torch.int8)
+    b[:, 1] = ((i // 2) % 2).to(torch.int8)
+    b[:, 2] = 1
+    b[:, 3] = (i % 3 == 0).to(torch.int8)
+    b[:, 4] = (i % 5 == 0).to(torch.int8)
+    return a, b
+
+
+def stacked_operands(rng, m, l, dev, wide=False):
+    """A stacked [m, l] A against B_t [5120, l]: 2% ones; the upper half
+    of the rows weighted by [-100, 100] (the earlier timing operands), or with
+    wide=True laid out as stack_static lays out C = m / 10 classes of
+    S = 8 terms: allow and forbid rows 0/1, the last C rows preferred
+    weights up to 300,000 (three digit planes)."""
+    import numpy as np
+    import torch
+    a = (rng.random((m, l)) < 0.02).astype(np.int32)
+    if wide:
+        c = m // 10
+        a[m - c:] *= rng.integers(-300_000, 300_001, size=(c, l)) \
+            .astype(np.int32)
+    else:
+        a[m // 2:] *= rng.integers(-100, 101, size=(m - m // 2, l)) \
+            .astype(np.int32)
+    b = (rng.random((5120, l)) < 0.01).astype(np.int8)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def check_incidence(kernels, extender_ops, dev):
+    """Exactness of the incidence kernel and its pre-pass on the card;
+    returns the max |kernel - plain| (0, or the smoke fails)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    err, checks = 0, 0
+    cases = []
+    for m in (1, 6, 16, 17, 130):
+        for n in (1, 255, N_NODES):
+            for l in (4104, 5000, 5008):
+                cases.append((f"M={m} N={n} L={l}",
+                              *incidence_check_operands(gen, m, n, l, dev)))
+    # L % 8 != 0 (the wrapper pads L), and operands whose base addresses
+    # are not 16-byte aligned (the wrapper copies them)
+    cases.append(("L=4100",
+                  *incidence_check_operands(gen, 6, 255, 4100, dev)))
+    a, b = incidence_check_operands(gen, 6, 255, 4104, dev)
+    a_odd = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+    b_odd = torch.empty(b.numel() + 1, dtype=b.dtype, device=dev)
+    a_odd[1:] = a.flatten()
+    b_odd[1:] = b.flatten()
+    cases.append(("odd addresses", a_odd[1:].view(a.shape),
+                  b_odd[1:].view(b.shape)))
+    cases.append(("evaluate_pod",) + tuple(extender_ops))
+    for tag, a, b in cases:
+        want64 = a.double() @ b.double().T
+        if want64.abs().max() > I32_MAX:
+            fail(f"incidence check operands at {tag} overflow int32")
+        got = kernels.incidence_matmul(a, b)
+        want = kernels.incidence_matmul_plain(a, b)
+        err = max(err, abs_err(got, want))
+        if not torch.equal(got, want):
+            fail(f"incidence_matmul != plain at {tag}: "
+                 f"{int((got != want).sum())} cells differ")
+        checks += 1
+    log(f"incidence_matmul == plain at {checks} shapes (exact; M in "
+        f"1/6/16/17/130 x N in 1/255/{N_NODES} x L in 4104/5000/5008 with "
+        f"+-2^22 weights and int32 extremes; L = 4100, padded by the "
+        f"wrapper; operands at odd addresses; the verdict's operands)")
+    # the C side refuses a plan it cannot run (tile_m = 32 does not exist)
+    code = kernels._lib("incidence_matmul")(
+        None, None, None, None, None, 6, N_NODES, 5008, 32, 1, 40, 5120,
+        None)
+    if code != kernels.BAD_PLAN:
+        fail(f"incidence_matmul_launch took a bad plan (returned {code})")
+    log("incidence launch refuses a bad plan (returns BAD_PLAN)")
+    return err
+
+
+def time_incidence(kernels, tag, a, b, flush):
+    import torch
+    m, l = a.shape
+    n = b.shape[0]
+    af, bf = a.float(), b.float()
+    plan = kernels.incidence_plan(m, n, l)
+    by = (4 * m * l + n * l + 4 * m * n) / HBM_BYTES_PER_S
+    op = 2 * m * n * l / INT8_TENSOR_OPS_PER_S
+    row = {
+        "ms": time_device_ms(lambda: kernels.incidence_matmul(a, b)),
+        "wrapper_ms": time_ms(lambda: kernels.incidence_matmul(a, b)),
+        "cold_ms": time_cold_ms(lambda: kernels.incidence_matmul(a, b),
+                                flush),
+        "cold_clean_ms": time_cold_ms(
+            lambda: kernels.incidence_matmul(a, b), flush, clean=True),
+        "plain_ms": time_device_ms(
+            lambda: kernels.incidence_matmul_plain(a, b)),
+        "library_ms": time_device_ms(lambda: torch.matmul(af, bf.T)),
+        "library_cold_ms": time_cold_ms(lambda: torch.matmul(af, bf.T),
+                                        flush),
+        "library_cold_clean_ms": time_cold_ms(
+            lambda: torch.matmul(af, bf.T), flush, clean=True),
+        "bound_ms": 1e3 * max(by, op),
+        "bound_by": "bytes" if by >= op else "operations",
+        "shape": f"M={m} N={n} L={l}",
+        "plan": {k: plan[k] for k in ("tile_m", "block_k", "split",
+                                      "grid")},
+    }
+    # the two kernels' device times from the profiler: the pre-pass's share
+    prof = profile_kernels(lambda: kernels.incidence_matmul(a, b)) or {}
+    pre = sum(v for k, v in prof.items() if "incidence_prepass" in k)
+    main = sum(v for k, v in prof.items() if "incidence_mma" in k)
+    row["prepass_ms"] = pre if prof else "not measured"
+    row["main_ms"] = main if prof else "not measured"
+    row["prepass_share"] = pre / (pre + main) if prof else "not measured"
+    row["tera_ops_per_s"] = 2 * m * n * l / (row["ms"] * 1e-3) / 1e12
+    log(f"incidence_matmul {tag}: " + json.dumps(row))
+    return row
+
+
 def check_kernels(kernels, extender_ops):
     import numpy as np
     import torch
@@ -132,24 +385,21 @@ def check_kernels(kernels, extender_ops):
         checks += 1
     log(f"capacity_fit == plain at {checks} shapes (exact)")
 
-    a_main, b_main = extender_ops
-    inc_shapes = [("evaluate_pod", a_main, b_main)]
+    max_err["incidence_matmul"] = check_incidence(kernels, extender_ops, dev)
+    inc_shapes = [("evaluate_pod",) + tuple(extender_ops)]
     for m in (640, 2560):
         for l in (2048, 4096):
-            a = (rng.random((m, l)) < 0.02).astype(np.int32)
-            a[m // 2:] *= rng.integers(-100, 101, size=(m - m // 2, l)) \
-                .astype(np.int32)                      # weight rows
-            b = (rng.random((5120, l)) < 0.01).astype(np.int8)
-            inc_shapes.append((f"M={m} L={l}", torch.from_numpy(a).to(dev),
-                               torch.from_numpy(b).to(dev)))
-    for tag, a, b in inc_shapes:
+            inc_shapes.append((f"M={m} L={l}",
+                               *stacked_operands(rng, m, l, dev)))
+    inc_shapes.append(("stack C=256 S=8 L=4096 wide weights",
+                       *stacked_operands(rng, 2560, 4096, dev, wide=True)))
+    for tag, a, b in inc_shapes[1:]:
         got = kernels.incidence_matmul(a, b)
         want = kernels.incidence_matmul_plain(a, b)
         max_err["incidence_matmul"] = max(max_err["incidence_matmul"],
                                           abs_err(got, want))
         if not torch.equal(got, want):
-            fail(f"incidence_matmul != plain at {tag} "
-                 f"{tuple(a.shape)}x{tuple(b.shape)}")
+            fail(f"incidence_matmul != plain at {tag}")
         log(f"incidence_matmul == plain at {tag} {tuple(a.shape)} x "
             f"{tuple(b.shape)} (exact)")
 
@@ -157,34 +407,32 @@ def check_kernels(kernels, extender_ops):
     req, alloc, requested = capacity_operands(rng, 16, N_NODES, 5, dev)
     p, r = req.shape
     n = alloc.shape[0]
+
+    def cap_call():
+        return kernels.capacity_fit(req, alloc, requested)
+
+    prof = profile_kernels(cap_call)
     cap = {
-        "ms": time_ms(lambda: kernels.capacity_fit(req, alloc, requested)),
-        "plain_ms": time_ms(
+        "ms": time_device_ms(cap_call),
+        "wrapper_ms": time_ms(cap_call),
+        "profiler_ms": None if prof is None else {
+            k: v for k, v in prof.items() if "capacity_fit" in k},
+        "plain_ms": time_device_ms(
             lambda: kernels.capacity_fit_plain(req, alloc, requested)),
         "library_ms": None,
         "bound_ms": 1e3 * max((4 * r * (p + 2 * n) + p * n) / HBM_BYTES_PER_S,
                               p * n * (2 * r + 1) / CUDA_CORE_OPS_PER_S),
         "bound_by": "bytes", "shape": f"P={p} N={n} R={r}",
     }
+    log("capacity_fit: " + json.dumps(cap))
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    log_clocks("before the incidence timings")
     inc = {}
     for tag, a, b in inc_shapes:
-        m, l = a.shape
-        n = b.shape[0]
-        af, bf = a.float(), b.float()
-        by = (4 * m * l + n * l + 4 * m * n) / HBM_BYTES_PER_S
-        op = 2 * m * n * l / INT8_TENSOR_OPS_PER_S
-        row = {
-            "ms": time_ms(lambda: kernels.incidence_matmul(a, b)),
-            "plain_ms": time_ms(
-                lambda: kernels.incidence_matmul_plain(a, b)),
-            "library_ms": time_ms(lambda: torch.matmul(af, bf.T)),
-            "bound_ms": 1e3 * max(by, op),
-            "bound_by": "bytes" if by >= op else "operations",
-            "shape": f"M={m} N={n} L={l}",
-        }
-        log(f"incidence_matmul {tag}: " + json.dumps(row))
-        inc.setdefault("main", row)
-    log("capacity_fit: " + json.dumps(cap))
+        inc.setdefault("main", time_incidence(kernels, tag, a, b, flush))
+    log_clocks("after them")
+    del flush
     return {"capacity_fit": cap, "incidence_matmul": inc["main"]}, max_err
 
 
@@ -377,7 +625,7 @@ def main() -> int:
     for name, rep in reports.items():
         log(f"built {name}:")
         for line in rep.splitlines():
-            if "ptxas info" in line:
+            if "ptxas info" in line or "spill" in line:
                 log("  " + line.strip())
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     card = card_facts()

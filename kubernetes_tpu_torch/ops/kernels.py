@@ -7,7 +7,9 @@ and launch counters.
   incidence_matmul   csrc/incidence_matmul.cu — replaces
                      kubernetes_tpu/ops/pallas_kernels.py:144
                      incidence_matmul_pallas (the affinity incidence
-                     product behind precompute_static).
+                     product behind precompute_static): int8 tensor cores
+                     over byte planes of A, launched by the plan of
+                     incidence_plan.
 
 Each wrapper dispatches on the device of the tensors it is given: on a
 CUDA tensor it launches its kernel on the current stream (and raises if
@@ -43,6 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # shared memory per capacity block is 4 * R * (16 + 2 * 128) bytes, which
 # must stay under the 48 KB a block gets without opting in
 CAPACITY_MAX_R = 40
+# returned by a launch function for a plan it cannot run (never a
+# cudaError_t, which are all >= 0)
+BAD_PLAN = -1
 
 # name -> (source file, exported C function, ctypes argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -50,7 +55,7 @@ _KERNELS = {
     "capacity_fit": ("capacity_fit.cu", "capacity_fit_launch",
                      (_P, _P, _P, _P, _I, _I, _I, _P)),
     "incidence_matmul": ("incidence_matmul.cu", "incidence_matmul_launch",
-                         (_P, _P, _P, _I, _I, _I, _P)),
+                         (_P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
 }
 
 # launches of each kernel since the last reset_launch_counts(); only the
@@ -138,6 +143,8 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
 
 
 def _raise_on(code: int, name: str) -> None:
+    if code == BAD_PLAN:
+        raise RuntimeError(f"{name}: the kernel refused its launch plan")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {code}")
 
@@ -208,18 +215,92 @@ def capacity_fit(pod_req: torch.Tensor, alloc: torch.Tensor,
 # incidence_matmul
 # ---------------------------------------------------------------------------
 
+INCIDENCE_TILE_N = 128   # output columns per block (kTileN in the source)
+INCIDENCE_PLANES = 4     # signed base-256 digits of an int32
+INCIDENCE_PREPASS_CHUNK = 1024   # entries of L per pre-pass block
+INCIDENCE_BLOCK_K = 128  # bytes of L per pipeline stage (kBlockK)
+# main-kernel blocks resident on one SM, for every tile height: the source
+# holds each configuration to it (launch bounds, shared-memory assert)
+INCIDENCE_BLOCKS_PER_SM = 2
+
+
+def incidence_plan(m: int, n: int, l: int, sms: int = 132) -> dict:
+    """The launch plan of the incidence kernel for A [m, l] x B_t [n, l]
+    on a card with `sms` SMs (one wave = INCIDENCE_BLOCKS_PER_SM * sms
+    blocks):
+
+      tile_m        output rows per block: 16 up to 16 rows (the
+                    verdict's one class is one tile), 64 up to 64, else
+                    128;
+      block_k       bytes of L per pipeline stage, fixed by the source;
+      split         slices of the L axis, one per gridDim.z: when the
+                    (M, N) grid leaves part of a wave empty, as many as
+                    fill it (at most one per block_k step); each slice
+                    adds into the zeroed output;
+      kb_per_split  block_k steps in each slice (the last may be shorter);
+      l_pad         L rounded up to block_k: the row length of the planes;
+      chunks        pre-pass blocks per row of A (1,024 entries each);
+      grid          (x, y, z) = (N tiles, M tiles, split).
+
+    `l` must be a multiple of 8 (the wrapper pads it so)."""
+    if m <= 0 or n <= 0 or l <= 0:
+        raise ValueError(f"incidence_plan: empty product {m} x {n} x {l}")
+    if l % 8:
+        raise ValueError(f"incidence_plan: L = {l} is not a multiple of 8")
+    gx = -(-n // INCIDENCE_TILE_N)
+    tile_m = 16 if m <= 16 else 64 if m <= 64 else 128
+    block_k = INCIDENCE_BLOCK_K
+    gy = -(-m // tile_m)
+    nkb = -(-l // block_k)
+    wave = INCIDENCE_BLOCKS_PER_SM * sms
+    split = max(1, min(nkb, wave // (gx * gy)))
+    kb_per_split = -(-nkb // split)
+    split = -(-nkb // kb_per_split)      # no empty slice
+    l_pad = nkb * block_k
+    return {"tile_m": tile_m, "tile_n": INCIDENCE_TILE_N,
+            "block_k": block_k, "split": split,
+            "kb_per_split": kb_per_split, "l_pad": l_pad,
+            "chunks": -(-l_pad // INCIDENCE_PREPASS_CHUNK),
+            "grid": (gx, gy, split)}
+
+
+def incidence_planes_plain(a: torch.Tensor, l_pad: int):
+    """The plain version of the kernel's pre-pass: A int32 [M, L] as four
+    int8 planes [4, M, l_pad] of signed base-256 digits, a = s0 + 2^8 s1
+    + 2^16 s2 + 2^24 s3 (mod 2^32), each s in [-128, 127], zero past L;
+    and each row's digit count int32 [M]: 0 for a zero row, else one more
+    than the highest digit the row's entries need."""
+    m, l = a.shape
+    r = a.to(torch.int64) & 0xFFFFFFFF               # the uint32 bits
+    planes = torch.zeros((INCIDENCE_PLANES, m, l_pad), dtype=torch.int8,
+                         device=a.device)
+    need = torch.zeros((m, l), dtype=torch.int32, device=a.device)
+    for p in range(INCIDENCE_PLANES):
+        d = ((r & 0xFF) ^ 0x80) - 0x80               # the low byte, signed
+        planes[p, :, :l] = d.to(torch.int8)
+        need = torch.where(r != 0, p + 1, need)
+        q = (r - d) & 0xFFFFFFFF                     # a multiple of 256
+        q = q - ((q >> 31) << 32)                    # as int32
+        r = (q >> 8) & 0xFFFFFFFF
+    count = need.amax(dim=1) if l else need.new_zeros(m)
+    return planes, count.to(torch.int32)
+
 
 def incidence_matmul_plain(a: torch.Tensor, b_t: torch.Tensor
                            ) -> torch.Tensor:
     """The plain version: A [M, L] x B_t [N, L] -> int32 [M, N], as a
     float64 product of the integer operands. Exact while every |partial
-    sum| < 2^53 (the operands are 0/1 incidences and small weights)."""
+    sum| < 2^53 (true for any int32 A and int8 B_t with L < 2^22)."""
     return (a.to(torch.float64) @ b_t.to(torch.float64).T).to(torch.int32)
+
+
+_sms: Dict[int, int] = {}
 
 
 def incidence_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """A int32 [M, L] x B_t int8 [N, L] -> int32 [M, N]: the CUDA kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor (pre-pass and tensor-core product, one count), the plain
+    version on a CPU tensor."""
     if a.device.type == "cpu":
         return incidence_matmul_plain(a, b_t)
     dev = a.device
@@ -230,16 +311,35 @@ def incidence_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     if b_t.shape[1] != l:
         raise ValueError(f"incidence_matmul: shapes {tuple(a.shape)} x "
                          f"{tuple(b_t.shape)}")
+    if m == 0 or n == 0 or l == 0:
+        return torch.zeros((m, n), dtype=torch.int32, device=dev)
+    # the kernel reads rows of L % 8 == 0 bytes from 16-byte aligned bases;
+    # the snapshot pads L to 8, other callers pay a copy
+    if l % 8:
+        a = torch.nn.functional.pad(a, (0, 8 - l % 8))
+        b_t = torch.nn.functional.pad(b_t, (0, 8 - l % 8))
+        l = a.shape[1]
+    if a.data_ptr() % 16:
+        a = a.clone()
+    if b_t.data_ptr() % 16:
+        b_t = b_t.clone()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    plan = incidence_plan(m, n, l, _sms[idx])
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    if m == 0 or n == 0:
-        return out
-    if l == 0:
-        return out.zero_()
+    # scratch: the planes int8 [4, m, l_pad], then the pre-pass counts
+    # int32 [m, chunks] (4 * m * l_pad is a multiple of 512: aligned)
+    planes_bytes = INCIDENCE_PLANES * m * plan["l_pad"]
+    scratch = torch.empty(planes_bytes + 4 * m * plan["chunks"],
+                          dtype=torch.int8, device=dev)
     fn = _lib("incidence_matmul")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(a.data_ptr(), b_t.data_ptr(), out.data_ptr(), m, n, l,
-                  stream)
+        code = fn(a.data_ptr(), b_t.data_ptr(), scratch.data_ptr(),
+                  scratch.data_ptr() + planes_bytes, out.data_ptr(), m, n, l,
+                  plan["tile_m"], plan["split"], plan["kb_per_split"],
+                  plan["l_pad"], stream)
     _raise_on(code, "incidence_matmul")
     LAUNCHES["incidence_matmul"] += 1
     return out

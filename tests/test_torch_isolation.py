@@ -1,7 +1,7 @@
-"""The port stands alone: no module of kubernetes_tpu_torch, and not
-chip_smoke.py, imports jax or the reference package; the package imports
-with both blocked; and its entry points refuse to run on a box without a
-card unless the caller names the CPU."""
+"""The port stands alone: no module of kubernetes_tpu_torch, and neither
+chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
+package imports with both blocked; and its entry points refuse to run on a
+box without a card unless the caller names the CPU."""
 
 import ast
 import pathlib
@@ -34,7 +34,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py",
+                            REPO / "kernel_ab.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
