@@ -15,11 +15,12 @@ phase fails. Phases:
      int32 extremes whose sums still fit int32, L % 16 == 8, the
      wrapper's padding of L and of misaligned operands, and a refused
      launch plan. Time kernel, plain version, library yardstick and bound:
-     wrapper time of back-to-back calls, device time with the host's
-     enqueue hidden, and (incidence) device time of one call with L2
-     flushed (dirty, and clean after a read-back); the pre-pass's share
-     (profiler) and the launch plan per shape; capacity_fit's device-only
-     time from the profiler;
+     `ms` is the time of back-to-back calls through the wrapper (the
+     kernels line's figure); beside it `device_ms`, device time with the
+     host's enqueue hidden, and (incidence) `cold_ms`, device time of one
+     call with L2 flushed (dirty, and clean after a read-back); the
+     pre-pass's share (profiler) and the launch plan per shape;
+     capacity_fit's device-only time from the profiler;
   3. run the wave engine at 512 nodes x 3,000 binpack pods on the card and
      on the CPU: every placement, fit count and the RR counter agree;
   4. the main path: drain 30,000 density pods, then 30,000 binpack pods
@@ -172,27 +173,31 @@ def time_cold_ms(fn, flush, clean: bool = False, reps: int = 15) -> float:
 
 def profile_kernels(fn, reps: int = 20):
     """Mean device time per call (ms) of each CUDA kernel `fn` launches,
-    from torch.profiler; None where the profiler records no device time."""
+    from torch.profiler; None where this torch has no device tracing
+    (built without Kineto) or the trace holds no device time. Any other
+    error of the profiler fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if not torch.autograd.kineto_available():
+        log("torch.profiler: no Kineto in this torch, device time not "
+            "measured")
+        return None
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = getattr(e, "cuda_time_total", 0)
-            if total > 0:
-                out[e.key] = total / 1e3 / reps
-        return out or None
-    except Exception as e:  # CUPTI may be unavailable; say so
-        log(f"torch.profiler recorded nothing: {type(e).__name__}: {e}")
-        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = getattr(e, "cuda_time_total", 0)
+        if total > 0:
+            out[e.key] = total / 1e3 / reps
+    if not out:
+        log("torch.profiler: the trace holds no device time")
+    return out or None
 
 
 # ---------------------------------------------------------------- phase 2
@@ -332,15 +337,17 @@ def time_incidence(kernels, tag, a, b, flush):
     by = (4 * m * l + n * l + 4 * m * n) / HBM_BYTES_PER_S
     op = 2 * m * n * l / INT8_TENSOR_OPS_PER_S
     row = {
-        "ms": time_device_ms(lambda: kernels.incidence_matmul(a, b)),
-        "wrapper_ms": time_ms(lambda: kernels.incidence_matmul(a, b)),
+        "ms": time_ms(lambda: kernels.incidence_matmul(a, b)),
+        "device_ms": time_device_ms(lambda: kernels.incidence_matmul(a, b)),
         "cold_ms": time_cold_ms(lambda: kernels.incidence_matmul(a, b),
                                 flush),
         "cold_clean_ms": time_cold_ms(
             lambda: kernels.incidence_matmul(a, b), flush, clean=True),
-        "plain_ms": time_device_ms(
+        "plain_ms": time_ms(lambda: kernels.incidence_matmul_plain(a, b)),
+        "plain_device_ms": time_device_ms(
             lambda: kernels.incidence_matmul_plain(a, b)),
-        "library_ms": time_device_ms(lambda: torch.matmul(af, bf.T)),
+        "library_ms": time_ms(lambda: torch.matmul(af, bf.T)),
+        "library_device_ms": time_device_ms(lambda: torch.matmul(af, bf.T)),
         "library_cold_ms": time_cold_ms(lambda: torch.matmul(af, bf.T),
                                         flush),
         "library_cold_clean_ms": time_cold_ms(
@@ -358,7 +365,8 @@ def time_incidence(kernels, tag, a, b, flush):
     row["prepass_ms"] = pre if prof else "not measured"
     row["main_ms"] = main if prof else "not measured"
     row["prepass_share"] = pre / (pre + main) if prof else "not measured"
-    row["tera_ops_per_s"] = 2 * m * n * l / (row["ms"] * 1e-3) / 1e12
+    row["tera_ops_per_s"] = \
+        2 * m * n * l / (row["device_ms"] * 1e-3) / 1e12
     log(f"incidence_matmul {tag}: " + json.dumps(row))
     return row
 
@@ -413,11 +421,13 @@ def check_kernels(kernels, extender_ops):
 
     prof = profile_kernels(cap_call)
     cap = {
-        "ms": time_device_ms(cap_call),
-        "wrapper_ms": time_ms(cap_call),
+        "ms": time_ms(cap_call),
+        "device_ms": time_device_ms(cap_call),
         "profiler_ms": None if prof is None else {
             k: v for k, v in prof.items() if "capacity_fit" in k},
-        "plain_ms": time_device_ms(
+        "plain_ms": time_ms(
+            lambda: kernels.capacity_fit_plain(req, alloc, requested)),
+        "plain_device_ms": time_device_ms(
             lambda: kernels.capacity_fit_plain(req, alloc, requested)),
         "library_ms": None,
         "bound_ms": 1e3 * max((4 * r * (p + 2 * n) + p * n) / HBM_BYTES_PER_S,
@@ -672,7 +682,8 @@ def main() -> int:
             "launches": launches_drain[name] + launches_eval[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "cold_ms": t.get("cold_ms")})
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

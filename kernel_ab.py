@@ -19,9 +19,10 @@ verdict shape (A [6, 5008], four 0/1 rows and a preferred-weight row up
 to 300,000, against B_t [5000, 5008] with 5% ones) and the stacked shapes
 of chip_smoke.py (M = 640 and 2,560, L = 2,048 and 4,096, plus the
 wide-weight stack). Each result is checked against the plain version
-first. Prints one JSON line per shape (device time warm and with L2
-cleanly flushed, in ms, as chip_smoke.py times them), the card line, and
-the card's clocks. Needs a CUDA device.
+first. Prints one JSON line per shape (in ms, as chip_smoke.py times
+them: back-to-back calls through the wrapper, device time warm, and
+device time with L2 cleanly flushed), the card line, and the card's
+clocks. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def main() -> int:
             return kernels.incidence_matmul(x, y)
         print(json.dumps({
             "tree": label, "shape": tag,
-            "ms": cs.time_device_ms(call),
+            "ms": cs.time_ms(call),
+            "device_ms": cs.time_device_ms(call),
             "cold_clean_ms": cs.time_cold_ms(call, flush, clean=True)}),
             flush=True)
     cs.log_clocks(f"after {label}")

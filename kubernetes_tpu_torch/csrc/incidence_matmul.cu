@@ -46,24 +46,20 @@
 //          inside the k loop: each B_t tile is loaded once and multiplied
 //          by every plane into its own accumulator, so B_t streams once
 //          even though the verdict's one tile holds a weight row;
-//        - 64- and 128-row tiles (operations-bound) run the planes
-//          outside the k loop, highest first, Horner style
-//          (acc = (acc << 8) + P_p), so the accumulators stay one set;
-//          a weight tile re-reads its B_t tiles once per extra plane.
+//        - 128-row tiles (operations-bound) run the planes outside the k
+//          loop, highest first, Horner style (acc = (acc << 8) + P_p), so
+//          the accumulators stay one set; a weight tile re-reads its B_t
+//          tiles once per extra plane.
 //   3. Tiles by shape, split-K for skinny products. 16-row tiles (8 warps)
-//      up to M = 16 (the verdict's M = 6 is one tile), 64-row tiles up to
-//      M = 64, 128-row tiles (4 warps of 64 x 64) above; 128 columns per
-//      tile. When the (M, N) grid leaves part of a wave empty, the L axis
+//      up to M = 16 (the verdict's M = 6 is one tile), 128-row tiles (4
+//      warps of 64 x 64) above; 128 columns per tile. When the (M, N) grid
+//      leaves part of a wave empty, the L axis
 //      is split across blocks (gridDim.z) up to one full wave: the
 //      pre-pass zeroes the output and each slice adds its partial sums
 //      with 32-bit integer atomics. Integer addition modulo 2^32 is
 //      associative and commutative, so the result is bit-exact and
 //      identical from run to run, whatever order the slices land in.
-//   4. The main kernel is a programmatic dependent launch: it may start
-//      while the pre-pass runs, requests its first B_t stages (which the
-//      pre-pass does not write), and only then waits for the pre-pass
-//      (griddepcontrol.wait) before it reads the planes and counts.
-//   5. The launch plan (tile rows, split factor, grid) is chosen in Python
+//   4. The launch plan (tile rows, split factor, grid) is chosen in Python
 //      (ops/kernels.py incidence_plan) from the shapes and the card's SM
 //      count, with kBlocksPerSm blocks per SM, and passed in; the launch
 //      function below checks it and returns kBadPlan on a plan it cannot
@@ -117,9 +113,6 @@ __global__ void __launch_bounds__(kPrepassThreads) incidence_prepass_kernel(
     int32_t* __restrict__ count, int32_t* __restrict__ c, int M, int N, int L,
     int Lp, int zero_c) {
   __shared__ int s_need;
-  // the main kernel may launch now and prefetch B_t; it waits for this
-  // grid to finish before it reads what this grid writes
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int m = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
   if (threadIdx.x == 0) s_need = 0;
   __syncthreads();
@@ -288,15 +281,6 @@ incidence_mma_kernel(
     }
   };
 
-  // B_t does not depend on the pre-pass: its first stages are requested
-  // before this grid waits for the pre-pass (programmatic dependent
-  // launch) and before the plane count is known. They join the first
-  // cp.async group; stage s >= nk (a Horner walk shorter than the ring)
-  // is requested with its A below.
-  const int early = min(STAGES - 1, nk);
-  for (int s = 0; s < early; ++s) load_b(s);
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-
   // planes this row tile needs: the max over its rows' pre-pass counts
   if (tid == 0) s_count = 0;
   __syncthreads();
@@ -306,11 +290,7 @@ incidence_mma_kernel(
   }
   __syncthreads();
   const int planes_used = s_count;  // 0..4
-  if (planes_used == 0 && accumulate) {  // adds nothing
-    cp_async_commit();
-    cp_async_wait<0>();
-    return;
-  }
+  if (planes_used == 0 && accumulate) return;  // adds nothing
   // pipeline steps: k blocks, times the planes when they run outside
   const int total = planes_used == 0 ? 0 : (INNER ? nk : planes_used * nk);
 
@@ -336,7 +316,7 @@ incidence_mma_kernel(
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < total) {
-      if (s >= early) load_b(s);
+      load_b(s);
       load_a(s, planes_used);
     }
     cp_async_commit();
@@ -424,8 +404,6 @@ struct Config;
 template <int VEC>
 struct Config<16, VEC> { using C = Cfg<16, 1, 8, kBlockK, 3, VEC, true>; };
 template <int VEC>
-struct Config<64, VEC> { using C = Cfg<64, 2, 2, kBlockK, 3, VEC, false>; };
-template <int VEC>
 struct Config<128, VEC> { using C = Cfg<128, 2, 2, kBlockK, 3, VEC, false>; };
 
 // Opt in to the configuration's shared memory (above 48 KB), once per
@@ -447,21 +425,11 @@ int launch_main(const int8_t* planes, const int32_t* count, const int8_t* b_t,
   using C = typename Config<TM, VEC>::C;
   const int e = prepare<C>();
   if (e != 0) return e;
-  // programmatic dependent launch: the grid may start while the pre-pass
-  // before it on the stream still runs (it waits in griddepcontrol.wait)
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kTileN - 1) / kTileN, (M + TM - 1) / TM, split);
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, incidence_mma_kernel<C>, planes, count, b_t, c, M, N, L, Lp,
-      kb_per_split, static_cast<int>(split > 1)));
+  const dim3 grid((N + kTileN - 1) / kTileN, (M + TM - 1) / TM, split);
+  incidence_mma_kernel<C><<<grid, C::kThreads, C::kSmem, stream>>>(
+      planes, count, b_t, c, M, N, L, Lp, kb_per_split,
+      static_cast<int>(split > 1));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int prepass(const int32_t* a, int8_t* planes, int32_t* count, int32_t* c,
@@ -475,7 +443,7 @@ int prepass(const int32_t* a, int8_t* planes, int32_t* count, int32_t* c,
 bool plan_ok(int M, int N, int L, int tile_m, int split, int kb_per_split,
              int Lp) {
   if (M <= 0 || N <= 0 || L <= 0 || L % 8 != 0) return false;
-  if (tile_m != 16 && tile_m != 64 && tile_m != 128) return false;
+  if (tile_m != 16 && tile_m != 128) return false;
   if (Lp % kBlockK != 0 || Lp < L || Lp - L >= kBlockK) return false;
   const int nkb = Lp / kBlockK;
   if (split < 1 || split > 65535 || kb_per_split < 1) return false;
@@ -517,10 +485,6 @@ extern "C" int incidence_matmul_launch(const void* a, const void* b_t,
                              split, s)                                       \
        : launch_main<TM, 8>(pl, cnt, b, out, M, N, L, Lp, kb_per_split,      \
                             split, s))
-  switch (tile_m) {
-    case 16: return INCIDENCE_LAUNCH(16);
-    case 64: return INCIDENCE_LAUNCH(64);
-    default: return INCIDENCE_LAUNCH(128);
-  }
+  return tile_m == 16 ? INCIDENCE_LAUNCH(16) : INCIDENCE_LAUNCH(128);
 #undef INCIDENCE_LAUNCH
 }

@@ -230,8 +230,7 @@ def incidence_plan(m: int, n: int, l: int, sms: int = 132) -> dict:
     blocks):
 
       tile_m        output rows per block: 16 up to 16 rows (the
-                    verdict's one class is one tile), 64 up to 64, else
-                    128;
+                    verdict's one class is one tile), else 128;
       block_k       bytes of L per pipeline stage, fixed by the source;
       split         slices of the L axis, one per gridDim.z: when the
                     (M, N) grid leaves part of a wave empty, as many as
@@ -248,7 +247,7 @@ def incidence_plan(m: int, n: int, l: int, sms: int = 132) -> dict:
     if l % 8:
         raise ValueError(f"incidence_plan: L = {l} is not a multiple of 8")
     gx = -(-n // INCIDENCE_TILE_N)
-    tile_m = 16 if m <= 16 else 64 if m <= 64 else 128
+    tile_m = 16 if m <= 16 else 128
     block_k = INCIDENCE_BLOCK_K
     gy = -(-m // tile_m)
     nkb = -(-l // block_k)

@@ -146,7 +146,7 @@ def test_incidence_plan_covers_each_cell_and_k_once(m, n, l):
     tm, tn, bk = plan["tile_m"], plan["tile_n"], plan["block_k"]
     split, kps, l_pad = plan["split"], plan["kb_per_split"], plan["l_pad"]
     gx, gy, gz = plan["grid"]
-    assert tm in (16, 64, 128) and bk == 128
+    assert tm in (16, 128) and bk == 128
     assert tn == 128 and gz == split >= 1
     assert l_pad % bk == 0 and 0 <= l_pad - l < bk
     assert plan["chunks"] == -(-l_pad // 1024)
@@ -163,7 +163,7 @@ def test_incidence_plan_covers_each_cell_and_k_once(m, n, l):
         assert kb1 > kb0
         ks[kb0 * bk:kb1 * bk] += 1
     assert (ks[:l] == 1).all()
-    assert tm == (16 if m <= 16 else 64 if m <= 64 else 128)
+    assert tm == (16 if m <= 16 else 128)
     # split-K fills at most one wave, and at least half of what it can
     wave = 132 * kernels.INCIDENCE_BLOCKS_PER_SM
     assert gx * gy * split <= max(wave, gx * gy)
