@@ -10,23 +10,31 @@ phase fails. Phases:
   1. build both CUDA kernels from csrc/ and print the card and its power
      limit;
   2. hold each kernel against its plain PyTorch version on the card
-     (exact equality) at the main path's shapes and at ragged ones; for
-     the incidence kernel also wide-weight rows (entries up to +-2^22),
-     int32 extremes whose sums still fit int32, L % 16 == 8, the
-     wrapper's padding of L and of misaligned operands, and a refused
-     launch plan. Time kernel, plain version, library yardstick and bound:
-     `ms` is the time of back-to-back calls through the wrapper (the
-     kernels line's figure); beside it `device_ms`, device time with the
-     host's enqueue hidden, and (incidence) `cold_ms`, device time of one
-     call with L2 flushed (dirty, and clean after a read-back); the
-     pre-pass's share (profiler) and the launch plan per shape;
-     capacity_fit's device-only time from the profiler;
+     (exact equality) at the main path's shapes and at ragged ones: for
+     the capacity kernel both outputs (the mask without and with the
+     zero-request override, and the wave call's mask and headroom), also
+     with over-committed nodes, pod counts past their ceiling and int32
+     extremes that wrap, and refused plans; for the incidence kernel also
+     wide-weight rows (entries up to +-2^22), int32 extremes whose sums
+     still fit int32, L % 16 == 8, the wrapper's padding of L and of
+     misaligned operands, and a refused launch plan. Time kernel, plain
+     version, library yardstick and bound: `ms` is the time of
+     back-to-back calls through the wrapper (the kernels line's figure);
+     beside it `device_ms`, device time with the host's enqueue hidden,
+     and (incidence) `cold_ms`, device time of one call with L2 flushed
+     (dirty, and clean after a read-back); the pre-pass's share
+     (profiler) and the launch plan per shape; capacity_fit's device-only
+     time from the profiler, and the wave call (capacity_headroom) the
+     same ways under `wave_*` keys;
   3. run the wave engine at 512 nodes x 3,000 binpack pods on the card and
      on the CPU: every placement, fit count and the RR counter agree;
   4. the main path: drain 30,000 density pods, then 30,000 binpack pods
      (fresh cache), on 5,000 hollow nodes through
      SchedulingEngine.schedule(mode="wave"), and audit the placements from
-     the cache (capacity, pod caps, unplaced pods fit nowhere);
+     the cache (capacity, pod caps, unplaced pods fit nowhere); the
+     capacity kernel ran once per wave (plus once per pod of a strict-loop
+     finish), and both its outputs equal their plain versions on each
+     drain's end state;
   5. the extender verdict: evaluate_pod for affinity probes against a
      5,000-node cluster holding 3,000 bound mixed-affinity pods, on the
      card and on the CPU: fits and scores agree;
@@ -139,6 +147,10 @@ def time_device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         host_ms = 1e3 * (time.perf_counter() - t0)
         b.synchronize()
         if host_ms > 0.8 * spin_ms:
+            if spin_ms >= 1000:
+                fail(f"time_device_ms: {reps} calls take {host_ms:.1f} ms "
+                     f"to enqueue behind a {spin_ms:.0f} ms spin (the call "
+                     f"waits for the device)")
             spin_ms *= 2
             continue
         per.append(a.elapsed_time(b) / reps)
@@ -226,6 +238,67 @@ def capacity_operands(rng, p, n, r, dev):
         req[:k] = alloc[:k] - requested[:k]
     t = [torch.from_numpy(x).to(dev) for x in (req, alloc, requested)]
     return t
+
+
+def headroom_operands(rng, req, alloc, requested, extremes=False):
+    """The wave call's operands around capacity_operands' (req, alloc,
+    requested): zero-request flags (the all-zero rows), pod counts with
+    nodes below, at and past their ceiling, over-committed nodes
+    (requested > alloc in some columns); with extremes=True int32 extremes
+    in every operand, whose sums and differences wrap. Returns (req, zero,
+    alloc, requested, pod_count, allowed_pods) on req's device."""
+    import numpy as np
+    import torch
+    dev = req.device
+    req, alloc, requested = (x.cpu().numpy().astype(np.int64)
+                             for x in (req, alloc, requested))
+    c, n = req.shape[0], alloc.shape[0]
+    over = rng.random(requested.shape) < 0.1
+    requested[over] = alloc[over] + rng.integers(1, 500, size=over.sum())
+    allowed = rng.integers(0, 120, size=n)
+    pod_count = np.maximum(allowed - rng.integers(1, 60, size=n), 0)
+    full = rng.random(n) < 0.2
+    pod_count[full] = allowed[full] + rng.integers(0, 3, size=full.sum())
+    if extremes:
+        ext = np.array([-2 ** 31, -2 ** 31 + 1, -1, 1, I32_MAX - 1, I32_MAX])
+        for a in (req, alloc, requested, allowed, pod_count):
+            hit = rng.random(a.shape) < 0.15
+            a[hit] = rng.choice(ext, size=hit.sum())
+    zero = ~req.any(axis=1)
+    zero[rng.random(c) < 0.1] = True                   # forced zero rows
+    req[zero] = 0
+    return tuple(torch.from_numpy(x.astype(np.int32) if x.dtype != bool
+                                  else x).to(dev)
+                 for x in (req, zero, alloc, requested, pod_count, allowed))
+
+
+def check_capacity_outputs(kernels, ops, tag):
+    """Both outputs of the capacity kernel against their plain versions on
+    the card, exactly: the mask without and with the override (one launch
+    each) and the wave call's mask and headroom (one launch). Returns the
+    max |kernel - plain|."""
+    import torch
+    req, zero, alloc, requested, pod_count, allowed = ops
+    pairs = [
+        ("mask", kernels.capacity_fit(req, alloc, requested),
+         kernels.capacity_fit_plain(req, alloc, requested)),
+        ("mask with override",
+         kernels.capacity_fit(req, alloc, requested, zero),
+         kernels.capacity_fit_plain(req, alloc, requested, zero))]
+    fit, cap = kernels.capacity_headroom(*ops)
+    pairs += [("wave mask", fit,
+               kernels.capacity_fit_plain(req, alloc, requested, zero)),
+              ("headroom", cap, kernels.class_capacity_plain(*ops))]
+    err = 0
+    for what, got, want in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"capacity {what} at {tag}: {got.dtype} {tuple(got.shape)}"
+                 f" against plain {want.dtype} {tuple(want.shape)}")
+        err = max(err, abs_err(got, want))
+        if not torch.equal(got, want):
+            fail(f"capacity {what} != plain at {tag}: "
+                 f"{int((got != want).sum())} cells differ")
+    return err
 
 
 def incidence_check_operands(gen, m, n, l, dev):
@@ -382,16 +455,33 @@ def check_kernels(kernels, extender_ops):
     shapes += [(p, n, r) for p in (1, 7, 130) for n in (1, 255, 257, N_NODES)
                for r in (5, 7)]
     for p, n, r in shapes:
-        req, alloc, requested = capacity_operands(rng, p, n, r, dev)
-        got = kernels.capacity_fit(req, alloc, requested)
-        want = kernels.capacity_fit_plain(req, alloc, requested)
-        max_err["capacity_fit"] = max(max_err["capacity_fit"],
-                                      abs_err(got, want))
-        if not torch.equal(got, want):
-            fail(f"capacity_fit != plain at P={p} N={n} R={r}: "
-                 f"{int((got != want).sum())} cells differ")
-        checks += 1
-    log(f"capacity_fit == plain at {checks} shapes (exact)")
+        for extremes in (False, True):
+            ops = headroom_operands(
+                rng, *capacity_operands(rng, p, n, r, dev), extremes)
+            tag = f"P={p} N={n} R={r}{' extremes' if extremes else ''}"
+            max_err["capacity_fit"] = max(
+                max_err["capacity_fit"],
+                check_capacity_outputs(kernels, ops, tag))
+            checks += 1
+    log(f"capacity kernel == plain at {checks} cases (exact; mask, mask "
+        f"with override, wave mask + headroom; P in 1/7/16/130 x N in "
+        f"1/255/257/{N_NODES} x R in 5/7, zero-request classes, nodes "
+        f"without overlay, over-committed nodes, pod counts at and past "
+        f"the ceiling, and int32 extremes that wrap)")
+    # the C side refuses plans and arguments it cannot run (it returns
+    # before any pointer is read: 1 stands for a device pointer)
+    ptrs = (1,) * 8
+    no_counts = (1, 1, 1, 1, None, None, 1, 1)
+    for what, args in (("block_n 48", ptrs + (16, N_NODES, 5, 48)),
+                       ("R = 4", ptrs + (16, N_NODES, 4, 128)),
+                       ("R = 41", ptrs + (16, N_NODES, 41, 128)),
+                       ("65,536 node blocks", ptrs + (16, 65536 * 32, 5, 32)),
+                       ("headroom without pod counts",
+                        no_counts + (16, N_NODES, 5, 128))):
+        code = kernels._lib("capacity_fit")(*args, None)
+        if code != kernels.BAD_PLAN:
+            fail(f"capacity_fit_launch took {what} (returned {code})")
+    log("capacity launch refuses bad plans and a headroom without counts")
 
     max_err["incidence_matmul"] = check_incidence(kernels, extender_ops, dev)
     inc_shapes = [("evaluate_pod",) + tuple(extender_ops)]
@@ -419,12 +509,9 @@ def check_kernels(kernels, extender_ops):
     def cap_call():
         return kernels.capacity_fit(req, alloc, requested)
 
-    prof = profile_kernels(cap_call)
     cap = {
         "ms": time_ms(cap_call),
         "device_ms": time_device_ms(cap_call),
-        "profiler_ms": None if prof is None else {
-            k: v for k, v in prof.items() if "capacity_fit" in k},
         "plain_ms": time_ms(
             lambda: kernels.capacity_fit_plain(req, alloc, requested)),
         "plain_device_ms": time_device_ms(
@@ -434,6 +521,34 @@ def check_kernels(kernels, extender_ops):
                               p * n * (2 * r + 1) / CUDA_CORE_OPS_PER_S),
         "bound_by": "bytes", "shape": f"P={p} N={n} R={r}",
     }
+    prof = profile_kernels(cap_call)
+    cap["profiler_ms"] = None if prof is None else {
+        k: v for k, v in prof.items() if "capacity" in k}
+    # the wave's call: mask with the override and headroom in one launch
+    ops = headroom_operands(rng, req, alloc, requested)
+
+    def wave_call():
+        return kernels.capacity_headroom(*ops)
+
+    def wave_plain():
+        return (kernels.capacity_fit_plain(ops[0], ops[2], ops[3], ops[1]),
+                kernels.class_capacity_plain(*ops))
+
+    cap.update({
+        "wave_ms": time_ms(wave_call),
+        "wave_device_ms": time_device_ms(wave_call),
+        # the plain versions run ~70 ops a call: 5 calls a round keep them
+        # inside the launch queue behind the spin
+        "wave_plain_ms": time_ms(wave_plain, reps=5),
+        "wave_plain_device_ms": time_device_ms(wave_plain, reps=5),
+        # read [C,R] + 2 x [N,R] int32, zero_req [C], pod_count and
+        # allowed_pods [N] int32; write [C,N] bool + [C,N] int32
+        "wave_bound_ms": 1e3 * (4 * r * (p + 2 * n) + p + 8 * n
+                                + 5 * p * n) / HBM_BYTES_PER_S,
+    })
+    prof = profile_kernels(wave_call)
+    cap["wave_profiler_ms"] = None if prof is None else {
+        k: v for k, v in prof.items() if "capacity" in k}
     log("capacity_fit: " + json.dumps(cap))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -523,20 +638,27 @@ def drain(hollow, kernels, SchedulingEngine, profile, card):
         f"{placed}, waves {eng.last_wave_stats}, wall {wall:.3f} s, "
         f"{N_PODS / wall:.0f} pods/s, launches {launches} [{card}]")
     log(f"drain {profile} spans (ms): " + json.dumps(spans("engine.")))
-    # the capacity kernel against its plain version on the node state this
-    # drain left behind and on the profile's class rows
+    # one capacity launch per wave, plus one per pod of a strict-loop
+    # finish (padded to its bucket)
     from kubernetes_tpu_torch.ops import predicates as preds
+    stats = eng.last_wave_stats
+    want = stats["waves"] + (preds.bucket(stats["stragglers"])
+                             if stats["stragglers"] else 0)
+    if launches["capacity_fit"] != want:
+        fail(f"drain {profile}: {launches['capacity_fit']} capacity "
+             f"launches for {stats}")
+    # both outputs of the capacity kernel against their plain versions on
+    # the node state this drain left behind and on the profile's class rows
     from kubernetes_tpu_torch.state.classes import ClassBatch
     eng._refresh()
     nd = eng._nodes_on_device()
     fresh = getattr(hollow, f"{profile}_pods")(64, seed=1, namespace="chk")
     cls = preds.pod_arrays_padded(ClassBatch(fresh, eng.snapshot).reps_batch,
                                   16, torch.device("cuda"))
-    if not torch.equal(
-            kernels.capacity_fit(cls["req"], nd["alloc"], nd["requested"]),
-            kernels.capacity_fit_plain(cls["req"], nd["alloc"],
-                                       nd["requested"])):
-        fail(f"capacity_fit != plain on the {profile} drain's state")
+    check_capacity_outputs(
+        kernels, (cls["req"], cls["zero_req"], nd["alloc"], nd["requested"],
+                  nd["pod_count"], nd["allowed_pods"]),
+        f"the {profile} drain's end state")
     return launches, wall
 
 
@@ -683,7 +805,9 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"], "cold_ms": t.get("cold_ms")})
+            "device_ms": t["device_ms"], "cold_ms": t.get("cold_ms"),
+            **{k: v for k, v in t.items() if k.startswith("wave_")
+               and "profiler" not in k}})
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

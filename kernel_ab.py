@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's incidence kernel of one source tree, so
-that two trees can be compared on one card in turns.
+"""Time the PyTorch/CUDA port's kernels of one source tree, so that two
+trees can be compared on one card in turns.
 
-    python3 kernel_ab.py [--tree DIR] [--label NAME]
+    python3 kernel_ab.py [--tree DIR] [--label NAME] [--mode MODE]
+                         [--plans] [--breakdown]
 
 DIR (default: this checkout) is the root of a tree that holds
 kubernetes_tpu_torch/; its ops/kernels.py builds its own csrc/ into its
@@ -12,17 +13,33 @@ in one shell on one card:
 
     git archive <parent> | tar -x -C .scratch/parent
     for t in .scratch/parent . . .scratch/parent; do
-        python3 kernel_ab.py --tree $t; done
+        python3 kernel_ab.py --tree $t --mode capacity; done
 
-Operands are made from fixed seeds, the same in every run: the one-pod
-verdict shape (A [6, 5008], four 0/1 rows and a preferred-weight row up
-to 300,000, against B_t [5000, 5008] with 5% ones) and the stacked shapes
-of chip_smoke.py (M = 640 and 2,560, L = 2,048 and 4,096, plus the
-wide-weight stack). Each result is checked against the plain version
-first. Prints one JSON line per shape (in ms, as chip_smoke.py times
-them: back-to-back calls through the wrapper, device time warm, and
-device time with L2 cleanly flushed), the card line, and the card's
-clocks. Needs a CUDA device.
+--mode incidence (the default): operands from fixed seeds, the same in
+every run: the one-pod verdict shape (A [6, 5008], four 0/1 rows and a
+preferred-weight row up to 300,000, against B_t [5000, 5008] with 5%
+ones) and the stacked shapes of chip_smoke.py (M = 640 and 2,560,
+L = 2,048 and 4,096, plus the wide-weight stack). Each result is checked
+against the plain version first. One JSON line per shape (in ms, as
+chip_smoke.py times them: back-to-back calls through the wrapper, device
+time warm, and device time with L2 cleanly flushed).
+
+--mode capacity: capacity_fit at [16 x 5000], R = 5 (chip_smoke.py's
+operands: `ms`, `device_ms`, the profiler's kernel time), and the wave's
+capacity step on a real mid-drain state (5,000 hollow nodes after a
+15,000-pod binpack drain, 16 class rows of fresh binpack pods): on a tree
+with kernels.capacity_headroom that is waves._class_capacity (one launch),
+on an older tree what its _wave_once ran for the same step,
+predicates.resources_fit plus waves._class_capacity. Both outputs are
+held against the plain versions first. Times the step (`wave_ms`,
+`wave_device_ms`) and counts, with torch.profiler, the device operations
+of the step and of one whole _wave_once. --breakdown adds the host cost
+of each step of capacity_fit's wrapper (perf_counter_ns, mean over many
+calls, as the tree's wrapper performs them); --plans (a tree with
+kernels.capacity_plan) times every block size the kernel takes, for the
+mask alone and with the headroom, at the wave and verdict shapes.
+
+Prints the card line and the card's clocks too. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,29 +48,13 @@ import argparse
 import json
 import os
 import sys
+import time
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", default=os.path.dirname(
-        os.path.abspath(__file__)))
-    ap.add_argument("--label", default="")
-    args = ap.parse_args()
+def incidence(cs, kernels, label, dev):
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    import chip_smoke as cs               # the timers, from this checkout
-    sys.path.insert(0, os.path.abspath(args.tree))
-    for name in [m for m in sys.modules if m.startswith("kubernetes_tpu_")]:
-        del sys.modules[name]
-    from kubernetes_tpu_torch.ops import kernels
-    label = args.label or os.path.relpath(os.path.abspath(args.tree), here)
     kernels.build(("incidence_matmul",))
-    dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     a = (rng.random((6, 5008)) < 0.002).astype(np.int32)
     a[5] *= rng.integers(0, 300_000, size=5008).astype(np.int32)
@@ -67,11 +68,11 @@ def main() -> int:
     shapes.append(("stack C=256 S=8 L=4096 wide weights",
                    *cs.stacked_operands(rng, 2560, 4096, dev, wide=True)))
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    cs.log_clocks(f"before {label}")
     for tag, x, y in shapes:
         if not torch.equal(kernels.incidence_matmul(x, y),
                            kernels.incidence_matmul_plain(x, y)):
             cs.fail(f"{label}: incidence_matmul != plain at {tag}")
+
         def call(x=x, y=y):
             return kernels.incidence_matmul(x, y)
         print(json.dumps({
@@ -80,6 +81,282 @@ def main() -> int:
             "device_ms": cs.time_device_ms(call),
             "cold_clean_ms": cs.time_cold_ms(call, flush, clean=True)}),
             flush=True)
+
+
+def per_call_ns(fn, calls=4000, chunk=100):
+    """Mean host ns of one call of fn (perf_counter_ns), over `calls`
+    calls in chunks; the device is synchronised between chunks, outside
+    the timed part, so the launch queue never fills."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(calls // chunk):
+        t0 = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+    return total / calls
+
+
+def host_breakdown(kernels, req, alloc, requested):
+    """Host ns of each step of the tree's capacity_fit wrapper, timed
+    alone, and of the whole call. "C call" is the bound C function with
+    an empty output (it returns before launching): ctypes alone."""
+    import torch
+    dev = req.device
+    idx = dev.index
+    p, r = req.shape
+    n = alloc.shape[0]
+    out = torch.empty((p, n), dtype=torch.bool, device=dev)
+    fn = kernels._lib("capacity_fit")
+    ptrs = (req.data_ptr(), alloc.data_ptr(), requested.data_ptr(),
+            out.data_ptr())
+    steps = {}
+    if hasattr(kernels, "capacity_headroom"):
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        plan = kernels.capacity_plan(p, n, kernels._sm_count(idx))
+        args = (req.data_ptr(), None, alloc.data_ptr(),
+                requested.data_ptr(), None, None, out.data_ptr(), None)
+        ops = [("pod_req", req, torch.int32, (p, r)),
+               ("alloc", alloc, torch.int32, (n, r)),
+               ("requested", requested, torch.int32, (n, r))]
+        steps["dispatch (is_cuda)"] = lambda: kernels._on_card(req, "x")
+        steps["one combined check"] = lambda: kernels._check_cuda(
+            "x", idx, ops)
+        steps["torch.empty [P,N] bool"] = lambda: torch.empty(
+            (p, n), dtype=torch.bool, device=dev)
+        steps["plan (cached)"] = lambda: kernels.capacity_plan(
+            p, n, kernels._sm_count(idx))
+        steps["current device + raw stream"] = lambda: (
+            torch._C._cuda_getDevice(),
+            torch._C._cuda_getCurrentRawStream(idx))
+        steps["4 data_ptr"] = lambda: tuple(t.data_ptr() for t in (
+            req, alloc, requested, out))
+        steps["C call, no launch"] = lambda: fn(*args, 0, n, r, plan,
+                                               stream)
+        steps["C call with launch"] = lambda: fn(*args, p, n, r, plan,
+                                                stream)
+    else:
+        def check3():
+            for t in (req, alloc, requested):
+                kernels._check_cuda("x", t, torch.int32, 2, dev)
+
+        def device_ctx():
+            with torch.cuda.device(dev):
+                pass
+
+        steps["dispatch (device.type)"] = lambda: req.device.type == "cpu"
+        steps["3 x _check_cuda"] = check3
+        steps["shape checks"] = lambda: (
+            alloc.shape[1] != r or tuple(requested.shape) != (n, r))
+        steps["torch.empty [P,N] bool"] = lambda: torch.empty(
+            (p, n), dtype=torch.bool, device=dev)
+        steps["torch.cuda.device context"] = device_ctx
+        steps["current_stream(dev).cuda_stream"] = lambda: \
+            torch.cuda.current_stream(dev).cuda_stream
+        steps["4 data_ptr"] = lambda: tuple(t.data_ptr() for t in (
+            req, alloc, requested, out))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        steps["C call, no launch"] = lambda: fn(*ptrs, 0, n, r, stream)
+        steps["C call with launch"] = lambda: fn(*ptrs, p, n, r, stream)
+    row = {k: per_call_ns(f) / 1e3 for k, f in steps.items()}
+    row["whole wrapper"] = per_call_ns(
+        lambda: kernels.capacity_fit(req, alloc, requested)) / 1e3
+    return row
+
+
+def wave_state(dev):
+    """A mid-drain wave state of the tree: 5,000 hollow nodes after a
+    15,000-pod binpack drain on the card; 16 class rows of 64 fresh
+    binpack pods; the wave's pod-class vector and kernel priorities."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.engine.batch import node_state
+    from kubernetes_tpu_torch.engine.scheduler_engine import SchedulingEngine
+    from kubernetes_tpu_torch.models import hollow
+    from kubernetes_tpu_torch.ops import predicates as preds
+    from kubernetes_tpu_torch.ops import priorities as prio
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.classes import ClassBatch
+    cache = SchedulerCache()
+    for nd in hollow.hollow_nodes(5000):
+        cache.add_node(nd)
+    eng = SchedulingEngine(cache, device=dev)
+    eng.schedule(hollow.binpack_pods(15000, seed=3), mode="wave")
+    eng._refresh()
+    nodes = eng._nodes_on_device()
+    pods = hollow.binpack_pods(64, seed=1, namespace="ab")
+    batch = ClassBatch(pods, eng.snapshot)
+    cls = preds.pod_arrays_padded(batch.reps_batch, 16, dev)
+    pc = np.full(preds.bucket(len(pods)), batch.num_classes, dtype=np.int32)
+    pc[:len(pods)] = batch.pod_class
+    prios = tuple((nm, w) for nm, w in prio.DEFAULT_PRIORITIES
+                  if nm not in prio.AFFINITY_PRIORITIES)
+    return cls, nodes, node_state(nodes), torch.from_numpy(pc).to(dev), prios
+
+
+def device_ops(fn):
+    """Device operations (kernels, copies, sets) one call of fn runs, by
+    name, from torch.profiler; None where the trace holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names or None
+
+
+def progress(label, what):
+    print(f"kernel_ab {label}: {what} ({time.strftime('%H:%M:%S')})",
+          file=sys.stderr, flush=True)
+
+
+def capacity(cs, kernels, label, dev, plans, breakdown):
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.engine import waves
+    from kubernetes_tpu_torch.ops import predicates as preds
+    kernels.build(("capacity_fit",))
+    rng = np.random.default_rng(0)
+    req, alloc, requested = cs.capacity_operands(rng, 16, 5000, 5, dev)
+
+    def cap_call():
+        return kernels.capacity_fit(req, alloc, requested)
+
+    if not torch.equal(cap_call(), kernels.capacity_fit_plain(
+            req, alloc, requested)):
+        cs.fail(f"{label}: capacity_fit != plain")
+    progress(label, "capacity_fit timings")
+    row = {"tree": label, "shape": "P=16 N=5000 R=5",
+           "ms": cs.time_ms(cap_call),
+           "device_ms": cs.time_device_ms(cap_call)}
+    prof = cs.profile_kernels(cap_call)
+    row["profiler_ms"] = None if prof is None else sum(
+        v for k, v in prof.items() if "capacity" in k)
+    # the same timing once more after the profiler's session
+    row["ms_after_profiler"] = cs.time_ms(cap_call)
+
+    progress(label, "wave state")
+    cls, nodes, state, pc, prios = wave_state(dev)
+    progress(label, "wave step")
+    fused = hasattr(kernels, "capacity_headroom")
+
+    def step():
+        if fused:
+            return waves._class_capacity(cls, nodes, state)
+        return (preds.resources_fit(cls["req"], cls["zero_req"],
+                                    nodes["alloc"], state.requested),
+                waves._class_capacity(cls, nodes, state))
+
+    fit, cap = step()
+    want_fit = kernels.capacity_fit_plain(
+        cls["req"], nodes["alloc"], state.requested) | cls["zero_req"][:, None]
+    if not torch.equal(fit, want_fit):
+        cs.fail(f"{label}: the wave step's mask != plain")
+    if fused and not torch.equal(cap, kernels.class_capacity_plain(
+            cls["req"], cls["zero_req"], nodes["alloc"], state.requested,
+            state.pod_count, nodes["allowed_pods"])):
+        cs.fail(f"{label}: the wave step's headroom != plain")
+    pre = waves.precompute(cls, nodes, prios)
+    active = torch.ones(pc.shape[0], dtype=torch.bool, device=dev)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    progress(label, "device operations")
+    step_ops = device_ops(step)
+    wave_ops = device_ops(lambda: waves._wave_once(
+        cls, nodes, state, pre, pc, active, counter, prios))
+    progress(label, "wave step timings")
+    row.update({
+        # 5 calls a round: the eager step of an older tree is 80 device
+        # operations a call, and 20 calls would overrun the launch queue
+        # behind the spin
+        "wave_ms": cs.time_ms(step, reps=5),
+        "wave_device_ms": cs.time_device_ms(step, reps=5),
+        "wave_step_device_ops": None if step_ops is None
+        else sum(step_ops.values()),
+        "wave_once_device_ops": None if wave_ops is None
+        else sum(wave_ops.values()),
+        "classes": int(cls["req"].shape[0]),
+    })
+    if breakdown:
+        progress(label, "host breakdown")
+        row["host_us"] = host_breakdown(kernels, req, alloc, requested)
+    print(json.dumps(row), flush=True)
+    if breakdown and step_ops:
+        print(json.dumps({"tree": label, "wave_step_device_ops": step_ops}),
+              flush=True)
+    if plans:
+        progress(label, "plans")
+        fn = kernels._lib("capacity_fit")
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        out = {}
+        for c in (16, 1):
+            ops = cs.headroom_operands(
+                rng, *cs.capacity_operands(rng, c, 5000, 5, dev))
+            f = torch.empty((c, 5000), dtype=torch.bool, device=dev)
+            k = torch.empty((c, 5000), dtype=torch.int32, device=dev)
+            ptrs = [t.data_ptr() for t in ops]
+            want_fit = kernels.capacity_fit_plain(ops[0], ops[2], ops[3],
+                                                  ops[1])
+            want = kernels.class_capacity_plain(*ops)
+            for what, cap_ptr in (("mask", None), ("headroom", k.data_ptr())):
+                for block_n in (32, 64, 128, 256):
+                    def launch(block_n=block_n, cap_ptr=cap_ptr):
+                        code = fn(*ptrs, f.data_ptr(), cap_ptr, c, 5000, 5,
+                                  block_n, stream)
+                        if code != 0:
+                            cs.fail(f"plan {block_n} refused ({code})")
+                    launch()
+                    if not torch.equal(f, want_fit) or (
+                            cap_ptr and not torch.equal(k, want)):
+                        cs.fail(f"plan {block_n}: {what} != plain")
+                    out[f"C={c} {what} block_n={block_n}"] = \
+                        cs.time_device_ms(launch)
+            out[f"C={c} chosen"] = kernels.capacity_plan(
+                c, 5000, kernels._sm_count(dev.index))
+        print(json.dumps({"tree": label, "plans_device_ms": out}),
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(
+        os.path.abspath(__file__)))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--mode", choices=("incidence", "capacity"),
+                    default="incidence")
+    ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--breakdown", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import chip_smoke as cs               # the timers, from this checkout
+    sys.path.insert(0, os.path.abspath(args.tree))
+    for name in [m for m in sys.modules if m.startswith("kubernetes_tpu_")]:
+        del sys.modules[name]
+    from kubernetes_tpu_torch.ops import kernels
+    label = args.label or os.path.relpath(os.path.abspath(args.tree), here)
+    # int_matmul needs full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cs.log_clocks(f"before {label}")
+    if args.mode == "incidence":
+        incidence(cs, kernels, label, dev)
+    else:
+        capacity(cs, kernels, label, dev, args.plans, args.breakdown)
     cs.log_clocks(f"after {label}")
     print(cs.card_facts())
     return 0

@@ -1,25 +1,47 @@
-// PodFitsResources capacity mask, [P, N] bool, for NVIDIA Hopper (sm_90a).
+// PodFitsResources capacity mask and per-class headroom, [C, N], for
+// NVIDIA Hopper (sm_90a), in one launch.
 //
 // Replaces the TPU kernel kubernetes_tpu/ops/pallas_kernels.py
-// capacity_fits_pallas (_capacity_kernel). Same function, cell for cell:
-// for every resource column except scratch (3) and overlay (4),
-// pod_req[p, r] + requested[n, r] <= alloc[n, r]; plus the storage special
-// case of predicates.go:590-604 (a node with no overlay capacity takes the
-// pod's overlay request on its scratch space). The zero-request override is
-// ORed in by the caller, as on the TPU.
+// capacity_fits_pallas (_capacity_kernel), and on the wave path also the
+// eager ops of kubernetes_tpu/engine/waves.py _class_capacity, which read
+// the same rows. Two outputs, the second on request:
 //
-// What bounds it: bytes. Each (p, n) cell reads R ints of three rows and
-// writes one byte; at the wave shape (P = 16 classes, N = 5,000 nodes,
-// R = 5) the kernel moves about 80 KB out and 200 KB in, well under a
-// microsecond at 3.35 TB/s, so one launch is bound by the launch itself.
-// The design keeps it simple: one thread per output cell, the block's pod
-// rows and node rows staged once in shared memory with coalesced loads,
-// the R loop in registers, and neighbouring threads writing neighbouring
-// bytes of one output row.
+//   fit[c, n]  the mask, cell for cell the TPU kernel's: for every resource
+//              column except scratch (3) and overlay (4),
+//              req[c, r] + requested[n, r] <= alloc[n, r]; plus the storage
+//              special case of predicates.go:590-604 (a node with no
+//              overlay capacity takes the class's overlay request on its
+//              scratch space). With a zero_req pointer the zero-request
+//              override (predicates.go:576-578) is ORed in, as
+//              predicates.resources_fit does.
+//   cap[c, n]  int32, how many more pods of class c fit on node n, cell for
+//              cell _class_capacity: floor(max(alloc - requested, 0) / req)
+//              per plain column (2^31 - 1 where req <= 0), the same over
+//              the storage columns with the scratch/overlay fallback, 2^31
+//              - 1 for a zero-request class, and at most
+//              max(allowed_pods - pod_count, 0).
 //
-// Integer semantics follow the reference's int32 arithmetic: sums wrap
-// modulo 2^32 (done in unsigned arithmetic, which C++ defines) before the
-// signed compare.
+// The mask and cap are computed side by side, never one from the other:
+// they differ on over-committed nodes (requested > alloc in a column the
+// class requests nothing of) and under wrap-around.
+//
+// What bounds it: latency. At the wave shape (C = 16 classes, N = 5,000
+// nodes, R = 5) the launch reads 200 KB and writes 400 KB, a fraction of
+// a microsecond at 3.35 TB/s; tensor cores and TMA have nothing to do.
+// What costs is the launch and the chain of dependent memory round trips
+// in each thread. So: one thread per cell, many small blocks (every SM
+// gets several; variant runs on the card found one class per thread
+// fastest); no shared-memory staging of node rows; each thread issues all
+// loads of its node's rows through the read-only path at once (a warp's
+// reads are contiguous) while the block's first threads copy its class row
+// into shared memory; one barrier; then registers only, and coalesced
+// stores (a warp writes 32 neighbouring cells of its class row).
+//
+// Integer semantics follow the reference's int32 arithmetic: sums and
+// differences wrap modulo 2^32 (done in unsigned arithmetic, which C++
+// defines) before the signed compare. Division operands are clamped to
+// rem > 0 and req > 0 first, so the unsigned divide equals torch's and
+// jnp's floor division.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,93 +50,153 @@ namespace {
 
 constexpr int kScratch = 3;
 constexpr int kOverlay = 4;
-constexpr int kBlockN = 128;  // nodes per block (threadIdx.x)
-constexpr int kBlockP = 16;   // pods per block (threadIdx.y, two rows each)
-constexpr int kThreadsY = 8;
+constexpr int kBaseColumns = 5;  // NUM_BASE_RESOURCES
+constexpr int kMaxR = 40;        // CAPACITY_MAX_R in ops/kernels.py
+constexpr int kRegR = 8;         // columns held in registers; more loop
+constexpr int32_t kBig = 0x7fffffff;
+constexpr int kBadPlan = -1;     // BAD_PLAN in ops/kernels.py
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
 }
 
-__global__ void capacity_fit_kernel(const int32_t* __restrict__ pod_req,
-                                    const int32_t* __restrict__ alloc,
-                                    const int32_t* __restrict__ requested,
-                                    uint8_t* __restrict__ out, int P, int N,
-                                    int R) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_pod = smem;                       // [kBlockP][R]
-  int32_t* s_alloc = s_pod + kBlockP * R;      // [kBlockN][R]
-  int32_t* s_req = s_alloc + kBlockN * R;      // [kBlockN][R]
+__device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
 
-  const int p0 = blockIdx.y * kBlockP;
-  const int n0 = blockIdx.x * kBlockN;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+// pods of request `req` that fit in `rem`: floor(max(rem, 0) / req) for
+// req > 0, else kBig
+__device__ __forceinline__ int32_t headroom(int32_t rem, int32_t req) {
+  if (req <= 0) return kBig;
+  if (rem <= 0) return 0;
+  return static_cast<int32_t>(static_cast<uint32_t>(rem) /
+                              static_cast<uint32_t>(req));
+}
 
-  // coalesced staging: the tile rows are contiguous runs of R ints
-  for (int i = tid; i < kBlockP * R; i += nthreads) {
-    const int p = p0 + i / R;
-    s_pod[i] = p < P ? pod_req[static_cast<int64_t>(p0) * R + i] : 0;
+// One thread per (class, node) cell: blockIdx.x is the class, blockIdx.y
+// a run of blockDim.x nodes, so blocks that run together share node rows
+// in L2.
+template <bool kCap>
+__global__ void __launch_bounds__(256)
+    capacity_kernel(const int32_t* __restrict__ pod_req,
+                    const uint8_t* __restrict__ zero_req,
+                    const int32_t* __restrict__ alloc,
+                    const int32_t* __restrict__ requested,
+                    const int32_t* __restrict__ pod_count,
+                    const int32_t* __restrict__ allowed_pods,
+                    uint8_t* __restrict__ fit, int32_t* __restrict__ cap,
+                    int N, int R) {
+  __shared__ int32_t s_req[kMaxR];
+  __shared__ uint8_t s_zero;
+  const int c = blockIdx.x;
+  // the block's class row, read once
+  for (int k = threadIdx.x; k < R; k += blockDim.x)
+    s_req[k] = __ldg(pod_req + static_cast<int64_t>(c) * R + k);
+  if (threadIdx.x == 0) s_zero = zero_req != nullptr ? __ldg(zero_req + c) : 0;
+
+  // the node's rows, all loads in flight before the barrier
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = n < N;
+  const int64_t row = static_cast<int64_t>(live ? n : 0) * R;
+  int32_t a[kRegR], q[kRegR];
+#pragma unroll
+  for (int k = 0; k < kRegR; ++k) {
+    const bool in = live && k < R;
+    a[k] = in ? __ldg(alloc + row + k) : 0;
+    q[k] = in ? __ldg(requested + row + k) : 0;
   }
-  for (int i = tid; i < kBlockN * R; i += nthreads) {
-    const int n = n0 + i / R;
-    const int64_t g = static_cast<int64_t>(n0) * R + i;
-    s_alloc[i] = n < N ? alloc[g] : 0;
-    s_req[i] = n < N ? requested[g] : 0;
-  }
+  int32_t count_cap = kBig;
+  if (kCap && live)
+    count_cap = max(wrap_sub(__ldg(allowed_pods + n), __ldg(pod_count + n)),
+                    0);
   __syncthreads();
+  if (!live) return;
 
-  const int nl = threadIdx.x;
-  const int n = n0 + nl;
-  if (n >= N) return;
-  const int32_t* a = s_alloc + nl * R;
-  const int32_t* q = s_req + nl * R;
-  const bool no_overlay = a[kOverlay] == 0;
-
-  for (int pl = threadIdx.y; pl < kBlockP; pl += kThreadsY) {
-    const int p = p0 + pl;
-    if (p >= P) break;
-    const int32_t* r = s_pod + pl * R;
-    bool ok = true;
-    for (int k = 0; k < R; ++k) {
-      if (k == kScratch || k == kOverlay) continue;
-      ok = ok && (wrap_add(r[k], q[k]) <= a[k]);
-    }
-    const int32_t pod_s = r[kScratch], pod_o = r[kOverlay];
-    const int32_t node_s = q[kScratch], node_o = q[kOverlay];
-    const int32_t alloc_s = a[kScratch], alloc_o = a[kOverlay];
-    bool scratch_ok, overlay_ok;
+  const int32_t* r = s_req;
+  bool ok = true;
+  int32_t room = kBig;
+#pragma unroll
+  for (int k = 0; k < kRegR; ++k) {
+    if (k >= R || k == kScratch || k == kOverlay) continue;
+    ok &= wrap_add(r[k], q[k]) <= a[k];
+    if (kCap) room = min(room, headroom(wrap_sub(a[k], q[k]), r[k]));
+  }
+  for (int k = kRegR; k < R; ++k) {  // columns past the register window
+    const int32_t ak = __ldg(alloc + row + k);
+    const int32_t qk = __ldg(requested + row + k);
+    ok &= wrap_add(r[k], qk) <= ak;
+    if (kCap) room = min(room, headroom(wrap_sub(ak, qk), r[k]));
+  }
+  // storage (predicates.go:590-604): with no overlay capacity the overlay
+  // request falls back onto scratch space
+  const int32_t alloc_s = a[kScratch], alloc_o = a[kOverlay];
+  const int32_t node_s = q[kScratch], node_o = q[kOverlay];
+  const int32_t pod_s = r[kScratch], pod_o = r[kOverlay];
+  const bool no_overlay = alloc_o == 0;
+  bool storage_ok;
+  if (no_overlay)
+    storage_ok =
+        wrap_add(wrap_add(wrap_add(pod_s, pod_o), node_s), node_o) <= alloc_s;
+  else
+    storage_ok = (wrap_add(pod_s, node_s) <= alloc_s) &
+                 (wrap_add(pod_o, node_o) <= alloc_o);
+  const bool zero = s_zero != 0;
+  const int64_t cell = static_cast<int64_t>(c) * N + n;
+  fit[cell] = static_cast<uint8_t>((ok & storage_ok) | zero);
+  if (kCap) {
+    const int32_t rem_s = wrap_sub(alloc_s, node_s);
     if (no_overlay) {
-      scratch_ok = wrap_add(wrap_add(wrap_add(pod_s, pod_o), node_s),
-                            node_o) <= alloc_s;
-      overlay_ok = true;
+      room = min(room,
+                 headroom(wrap_sub(rem_s, node_o), wrap_add(pod_s, pod_o)));
     } else {
-      scratch_ok = wrap_add(pod_s, node_s) <= alloc_s;
-      overlay_ok = wrap_add(pod_o, node_o) <= alloc_o;
+      room = min(room, headroom(rem_s, pod_s));
+      room = min(room, headroom(wrap_sub(alloc_o, node_o), pod_o));
     }
-    out[static_cast<int64_t>(p) * N + n] =
-        static_cast<uint8_t>(ok && scratch_ok && overlay_ok);
+    cap[cell] = min(zero ? kBig : room, count_cap);
   }
 }
 
 }  // namespace
 
-// C interface for ctypes. pod_req int32 [P, R], alloc and requested int32
-// [N, R], out uint8 [P, N], all contiguous on the device; stream is a
-// cudaStream_t. Returns the launch's cudaError_t (0 on success).
-extern "C" int capacity_fit_launch(const void* pod_req, const void* alloc,
-                                   const void* requested, void* out, int P,
-                                   int N, int R, void* stream) {
-  if (P == 0 || N == 0) return 0;
-  const dim3 block(kBlockN, kThreadsY);
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (P + kBlockP - 1) / kBlockP);
-  const size_t smem = sizeof(int32_t) * static_cast<size_t>(R) *
-                      (kBlockP + 2 * kBlockN);
-  capacity_fit_kernel<<<grid, block, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(pod_req), static_cast<const int32_t*>(alloc),
-      static_cast<const int32_t*>(requested), static_cast<uint8_t*>(out), P,
-      N, R);
+// C interface for ctypes. pod_req int32 [C, R]; zero_req uint8 [C] or
+// null (no override); alloc and requested int32 [N, R]; pod_count and
+// allowed_pods int32 [N]; fit uint8 [C, N]; cap int32 [C, N] or null (mask
+// only; when given, zero_req, pod_count and allowed_pods must be too). All
+// contiguous on the current device; stream is a cudaStream_t of it.
+// block_n (nodes per block) comes from ops/kernels.capacity_plan. Returns
+// kBadPlan for arguments the kernel cannot run, 0 without launching for an
+// empty output, else the launch's cudaError_t.
+extern "C" int capacity_fit_launch(const void* pod_req, const void* zero_req,
+                                   const void* alloc, const void* requested,
+                                   const void* pod_count,
+                                   const void* allowed_pods, void* fit,
+                                   void* cap, int C, int N, int R,
+                                   int block_n, void* stream) {
+  if (R < kBaseColumns || R > kMaxR || C < 0 || N < 0) return kBadPlan;
+  if (block_n != 32 && block_n != 64 && block_n != 128 && block_n != 256)
+    return kBadPlan;
+  if (cap != nullptr &&
+      (zero_req == nullptr || pod_count == nullptr || allowed_pods == nullptr))
+    return kBadPlan;
+  if (C == 0 || N == 0) return 0;
+  const dim3 grid(C, (N + block_n - 1) / block_n);
+  if (grid.y > 65535) return kBadPlan;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* req = static_cast<const int32_t*>(pod_req);
+  const auto* zero = static_cast<const uint8_t*>(zero_req);
+  const auto* al = static_cast<const int32_t*>(alloc);
+  const auto* rq = static_cast<const int32_t*>(requested);
+  const auto* pc = static_cast<const int32_t*>(pod_count);
+  const auto* ap = static_cast<const int32_t*>(allowed_pods);
+  auto* f = static_cast<uint8_t*>(fit);
+  auto* cp = static_cast<int32_t*>(cap);
+  if (cp != nullptr)
+    capacity_kernel<true><<<grid, block_n, 0, s>>>(req, zero, al, rq, pc, ap,
+                                                   f, cp, N, R);
+  else
+    capacity_kernel<false><<<grid, block_n, 0, s>>>(req, zero, al, rq, pc,
+                                                    ap, f, cp, N, R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,28 +41,23 @@ from kubernetes_tpu_torch.engine.batch import (
     counter_as_i32,
     gather_place_batch,
 )
+from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prio
 from kubernetes_tpu_torch.ops.predicates import int_matmul
-from kubernetes_tpu_torch.state.snapshot import (
-    NUM_BASE_RESOURCES,
-    R_OVERLAY,
-    R_SCRATCH,
-)
 
 Arrays = Dict[str, torch.Tensor]
 
 I32 = torch.int32
-_BIG = 2 ** 31 - 1
 
 
-def _dynamic_fits(cls: Arrays, nodes: Arrays, state: NodeState
-                  ) -> torch.Tensor:
-    """Capacity-dependent predicate chain vs the wave's frozen state, [C,N]
-    — the capacity kernel (ops/kernels.capacity_fit) on the card."""
+def _dynamic_fits(cls: Arrays, nodes: Arrays, state: NodeState,
+                  res_fit: torch.Tensor) -> torch.Tensor:
+    """Capacity-dependent predicate chain vs the wave's frozen state, [C,N].
+    `res_fit` is the resources-fit mask of _class_capacity, computed in the
+    same launch as the headroom."""
     return (
-        preds.resources_fit(cls["req"], cls["zero_req"], nodes["alloc"],
-                            state.requested)
+        res_fit
         & preds.pod_count_fit(state.pod_count, nodes["allowed_pods"])[None, :]
         & preds.ports_fit(cls["ports"], state.port_bitmap)
         & preds.no_disk_conflict(cls["vol_hard"], cls["vol_ro"],
@@ -135,43 +130,18 @@ def _wave_scores(cls: Arrays, nodes: Arrays, state: NodeState,
 
 
 def _class_capacity(cls: Arrays, nodes: Arrays, state: NodeState
-                    ) -> torch.Tensor:
-    """cap[C,N]: how many MORE pods of class c fit on node n, by exact
-    integer division per resource column (the resources_fit semantics,
-    overlay->scratch fallback and zero-request early exit included) plus
-    the allowed-pod-number ceiling."""
-    alloc = nodes["alloc"]
-    rem = alloc - state.requested                       # [N,R]
-    req = cls["req"]                                    # [C,R]
-
-    def col_cap(rem_col, req_col):                      # [N],[C] -> [C,N]
-        r = req_col.clamp(min=1)[:, None]
-        cap = rem_col.clamp(min=0)[None, :] // r
-        return torch.where(req_col[:, None] > 0, cap, _BIG)
-
-    plain_cols = [0, 1, 2] + list(range(NUM_BASE_RESOURCES, alloc.shape[1]))
-    cap = torch.full((req.shape[0], alloc.shape[0]), _BIG, dtype=I32,
-                     device=alloc.device)
-    for col in plain_cols:
-        cap = torch.minimum(cap, col_cap(rem[:, col], req[:, col]))
-    no_ov = alloc[:, R_OVERLAY] == 0                    # [N]
-    scr_rem = torch.where(no_ov,
-                          alloc[:, R_SCRATCH] - state.requested[:, R_SCRATCH]
-                          - state.requested[:, R_OVERLAY],
-                          rem[:, R_SCRATCH])
-    scr_add = torch.where(no_ov[None, :],
-                          (req[:, R_SCRATCH] + req[:, R_OVERLAY])[:, None],
-                          req[:, R_SCRATCH][:, None])   # [C,N]
-    scr_cap = torch.where(scr_add > 0,
-                          scr_rem.clamp(min=0)[None, :]
-                          // scr_add.clamp(min=1), _BIG)
-    cap = torch.minimum(cap, scr_cap)
-    ov_cap = torch.where(no_ov[None, :], _BIG,
-                         col_cap(rem[:, R_OVERLAY], req[:, R_OVERLAY]))
-    cap = torch.minimum(cap, ov_cap)
-    cap = torch.where(cls["zero_req"][:, None], _BIG, cap)
-    count_cap = (nodes["allowed_pods"] - state.pod_count).clamp(min=0)
-    return torch.minimum(cap, count_cap[None, :])
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wave's capacity step against the frozen state, one launch of the
+    capacity kernel on the card (ops/kernels.capacity_headroom): the
+    resources-fit mask [C,N] (PodFitsResources minus the pod-count check,
+    zero-request override in; _dynamic_fits ANDs it) and cap[C,N], how
+    many MORE pods of class c fit on node n, by exact integer division per
+    resource column (the resources_fit semantics, overlay->scratch
+    fallback and zero-request early exit included) plus the
+    allowed-pod-number ceiling (kernels.class_capacity_plain)."""
+    return kernels.capacity_headroom(
+        cls["req"], cls["zero_req"], nodes["alloc"], state.requested,
+        state.pod_count, nodes["allowed_pods"])
 
 
 # per-wave per-node acceptance window; bounds rank*request products so all
@@ -233,8 +203,9 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
     pcl = pod_class.long()
     iota = torch.arange(P, dtype=I32, device=dev)
 
+    res_fit, cap = _class_capacity(cls, nodes, state)   # [C,N] each
     fits = pre["static_fit"] & preds.node_condition_fit(cls, nodes) \
-        & _dynamic_fits(cls, nodes, state)              # [C,N]
+        & _dynamic_fits(cls, nodes, state, res_fit)     # [C,N]
     fitcnt = fits.sum(dim=1, dtype=I32)                 # [C]
     scores = _wave_scores(cls, nodes, state, pre, fits, priorities)
     masked = torch.where(fits, scores, -1)
@@ -269,7 +240,6 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
     first_class = s_class[bs]
     same_run = torch.cumsum((s_class != first_class).to(I32), 0, dtype=I32)
     same_run = (same_run - same_run[bs]) == 0
-    cap = _class_capacity(cls, nodes, state)            # [C,N]
     safe_sel = s_sel.clamp(min=0).long()
     cap_lim = cap[s_class, safe_sel].clamp(max=K_WAVE)
     special_cls = ((cls["ports"][:, 0] >= 0)

@@ -3,7 +3,10 @@ and launch counters.
 
   capacity_fit       csrc/capacity_fit.cu — replaces the TPU kernel
                      kubernetes_tpu/ops/pallas_kernels.py:90
-                     capacity_fits_pallas (the PodFitsResources mask).
+                     capacity_fits_pallas (the PodFitsResources mask);
+                     capacity_headroom launches the same kernel for the
+                     wave, which also writes the per-class headroom of
+                     kubernetes_tpu/engine/waves.py _class_capacity.
   incidence_matmul   csrc/incidence_matmul.cu — replaces
                      kubernetes_tpu/ops/pallas_kernels.py:144
                      incidence_matmul_pallas (the affinity incidence
@@ -12,23 +15,29 @@ and launch counters.
                      incidence_plan.
 
 Each wrapper dispatches on the device of the tensors it is given: on a
-CUDA tensor it launches its kernel on the current stream (and raises if
-the launch fails); on a CPU tensor it runs the plain PyTorch version
-beside it. There is no fallback from one to the other. The sources are
-compiled at first use with nvcc (sm_90a, a plain C interface, loaded
-with ctypes) into ``.torch_kernels/`` at the root of the checkout.
+CUDA tensor it launches its kernel on PyTorch's current stream (and raises
+if the launch fails); on a CPU tensor it runs the plain PyTorch version
+beside it; any other device raises. There is no fallback from one to the
+other. The sources are compiled at first use with nvcc (sm_90a, a plain C
+interface, loaded with ctypes) into ``.torch_kernels/`` at the root of the
+checkout. The launch path is kept lean because these kernels run for a
+few microseconds: one combined operand check, one ``torch.empty`` per
+output, the bound C function cached, the current raw stream read without
+building a ``Stream`` object, and the device switched only when the
+operands are not on the current one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,8 +51,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# shared memory per capacity block is 4 * R * (16 + 2 * 128) bytes, which
-# must stay under the 48 KB a block gets without opting in
+# resource columns the capacity kernel takes (kMaxR in the source: a
+# block's class row sits in a static shared array of 40 ints)
 CAPACITY_MAX_R = 40
 # returned by a launch function for a plan it cannot run (never a
 # cudaError_t, which are all >= 0)
@@ -53,7 +62,7 @@ BAD_PLAN = -1
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "capacity_fit": ("capacity_fit.cu", "capacity_fit_launch",
-                     (_P, _P, _P, _P, _I, _I, _I, _P)),
+                     (_P,) * 8 + (_I,) * 4 + (_P,)),
     "incidence_matmul": ("incidence_matmul.cu", "incidence_matmul_launch",
                          (_P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
 }
@@ -130,36 +139,93 @@ def _lib(name: str):
     return fn
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-                device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: {t.dim()}-d tensor, expected {ndim}-d")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); a tensor on any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.is_cpu:
+        return False
+    raise ValueError(f"{name}: tensor on {t.device}, expected cuda or cpu")
 
 
-def _raise_on(code: int, name: str) -> None:
+def _check_cuda(name: str, dev: int, operands) -> None:
+    """The one check of a launch's operands: each (label, tensor, dtype,
+    shape) must lie on CUDA device `dev`, have that dtype and shape, and
+    be contiguous."""
+    for label, t, dtype, shape in operands:
+        if t.dtype is dtype and t.get_device() == dev and t.shape == shape \
+                and t.is_contiguous():
+            continue
+        raise ValueError(
+            f"{name} {label}: {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ', not contiguous'}; expected "
+            f"{dtype} {tuple(shape)} contiguous on cuda:{dev}")
+
+
+def _launch(name: str, dev: int, *args) -> None:
+    """Call kernel `name`'s C launch function with `args` and PyTorch's
+    current raw stream of CUDA device `dev`, which is made the current
+    device for the call only when it is not already; raise on a non-zero
+    return, and count the launch."""
+    fn = _libs.get(name) or _lib(name)
+    if torch._C._cuda_getDevice() == dev:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if code == BAD_PLAN:
         raise RuntimeError(f"{name}: the kernel refused its launch plan")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {code}")
+    LAUNCHES[name] += 1
+
+
+_sms: Dict[int, int] = {}
+
+
+def _sm_count(dev: int) -> int:
+    sms = _sms.get(dev)
+    if sms is None:
+        sms = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
 
 
 # ---------------------------------------------------------------------------
 # capacity_fit
 # ---------------------------------------------------------------------------
 
+CAPACITY_BLOCK_N = (128, 64, 32)   # nodes per block the plan picks from
+
+
+@functools.lru_cache(maxsize=256)
+def capacity_plan(c: int, n: int, sms: int = 132) -> int:
+    """The launch plan of the capacity kernel for C classes x N nodes on a
+    card with `sms` SMs: block_n, the nodes of one block (one thread per
+    (class, node) cell; grid (C, ceil(N / block_n))). 128, the fastest in
+    variant runs on the card at the wave shape, unless the grid would
+    leave an SM without a block; then the largest of 64 and 32 that does
+    not, else 32. The C side takes block_n in {32, 64, 128, 256} and
+    ceil(N / block_n) <= 65,535, and refuses any other plan."""
+    if c <= 0 or n <= 0:
+        raise ValueError(f"capacity_plan: empty output {c} x {n}")
+    for block_n in CAPACITY_BLOCK_N:
+        if c * -(-n // block_n) >= sms:
+            break
+    return block_n
+
 
 def capacity_fit_plain(pod_req: torch.Tensor, alloc: torch.Tensor,
-                       requested: torch.Tensor) -> torch.Tensor:
+                       requested: torch.Tensor,
+                       zero_req: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """The plain version: PodFitsResources (predicates.go:556-624) without
-    the pod-count check and without the zero-request override, as the
-    broadcast compare over a [P, N, R] cube. int32 in, bool [P, N] out.
-    Column layout: 0=cpu 1=mem 2=gpu 3=scratch 4=overlay 5..=extended."""
+    the pod-count check, as the broadcast compare over a [P, N, R] cube;
+    with `zero_req` [P] bool the zero-request override ORed in
+    (predicates.go:576-578), without it left out (the TPU kernel's
+    function). int32 in, bool [P, N] out. Column layout: 0=cpu 1=mem
+    2=gpu 3=scratch 4=overlay 5..=extended."""
     total = pod_req[:, None, :] + requested[None, :, :]          # [P,N,R]
     ok = total <= alloc[None, :, :]
     plain = torch.cat([ok[..., :R_SCRATCH], ok[..., NUM_BASE_RESOURCES:]],
@@ -177,38 +243,124 @@ def capacity_fit_plain(pod_req: torch.Tensor, alloc: torch.Tensor,
                              pod_s + pod_o + node_s + node_o <= alloc_s,
                              pod_s + node_s <= alloc_s)
     overlay_ok = no_overlay | (pod_o + node_o <= alloc_o)
-    return plain & scratch_ok & overlay_ok
+    fit = plain & scratch_ok & overlay_ok
+    return fit if zero_req is None else fit | zero_req[:, None]
+
+
+_BIG = 2 ** 31 - 1   # "no limit" in the headroom
+
+
+def class_capacity_plain(pod_req: torch.Tensor, zero_req: torch.Tensor,
+                         alloc: torch.Tensor, requested: torch.Tensor,
+                         pod_count: torch.Tensor, allowed_pods: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain version of the headroom, the wave engine's
+    _class_capacity (kubernetes_tpu/engine/waves.py:318): cap[C, N] int32,
+    how many MORE pods of class c fit on node n, by exact integer division
+    per resource column (the resources_fit semantics, overlay->scratch
+    fallback and zero-request early exit included) plus the allowed-pod
+    ceiling. Every int32 difference wraps, as in the reference; operands
+    are clamped non-negative before the (floor) division."""
+    rem = alloc - requested                             # [N,R]
+    req = pod_req                                       # [C,R]
+
+    def col_cap(rem_col, req_col):                      # [N],[C] -> [C,N]
+        r = req_col.clamp(min=1)[:, None]
+        cap = rem_col.clamp(min=0)[None, :] // r
+        return torch.where(req_col[:, None] > 0, cap, _BIG)
+
+    plain_cols = [0, 1, 2] + list(range(NUM_BASE_RESOURCES, alloc.shape[1]))
+    cap = torch.full((req.shape[0], alloc.shape[0]), _BIG, dtype=torch.int32,
+                     device=alloc.device)
+    for col in plain_cols:
+        cap = torch.minimum(cap, col_cap(rem[:, col], req[:, col]))
+    no_ov = alloc[:, R_OVERLAY] == 0                    # [N]
+    scr_rem = torch.where(no_ov,
+                          alloc[:, R_SCRATCH] - requested[:, R_SCRATCH]
+                          - requested[:, R_OVERLAY],
+                          rem[:, R_SCRATCH])
+    scr_add = torch.where(no_ov[None, :],
+                          (req[:, R_SCRATCH] + req[:, R_OVERLAY])[:, None],
+                          req[:, R_SCRATCH][:, None])   # [C,N]
+    scr_cap = torch.where(scr_add > 0,
+                          scr_rem.clamp(min=0)[None, :]
+                          // scr_add.clamp(min=1), _BIG)
+    cap = torch.minimum(cap, scr_cap)
+    ov_cap = torch.where(no_ov[None, :], _BIG,
+                         col_cap(rem[:, R_OVERLAY], req[:, R_OVERLAY]))
+    cap = torch.minimum(cap, ov_cap)
+    cap = torch.where(zero_req[:, None], _BIG, cap)
+    count_cap = (allowed_pods - pod_count).clamp(min=0)
+    return torch.minimum(cap, count_cap[None, :])
+
+
+def _capacity_launch(pod_req, zero_req, alloc, requested, pod_count,
+                     allowed_pods, name):
+    """One launch of the capacity kernel: fit [C, N] bool, and cap [C, N]
+    int32 when pod_count is given (else None)."""
+    dev = pod_req.get_device()
+    if pod_req.dim() != 2 or alloc.dim() != 2:
+        raise ValueError(f"{name}: shapes {tuple(pod_req.shape)}, "
+                         f"{tuple(alloc.shape)}, expected [C, R], [N, R]")
+    c, r = pod_req.shape
+    n = alloc.shape[0]
+    if not NUM_BASE_RESOURCES <= r <= CAPACITY_MAX_R:
+        raise ValueError(f"{name}: {r} resource columns, the kernel takes "
+                         f"{NUM_BASE_RESOURCES}..{CAPACITY_MAX_R}")
+    i32 = torch.int32
+    operands = [("pod_req", pod_req, i32, (c, r)),
+                ("alloc", alloc, i32, (n, r)),
+                ("requested", requested, i32, (n, r))]
+    if zero_req is not None:
+        operands.append(("zero_req", zero_req, torch.bool, (c,)))
+    if pod_count is not None:
+        operands += [("pod_count", pod_count, i32, (n,)),
+                     ("allowed_pods", allowed_pods, i32, (n,))]
+    _check_cuda(name, dev, operands)
+    # new_empty: the operand's device without parsing a device argument
+    fit = pod_req.new_empty((c, n), dtype=torch.bool)
+    cap = None if pod_count is None else pod_req.new_empty((c, n))
+    if c == 0 or n == 0:
+        return fit, cap
+    block_n = capacity_plan(c, n, _sm_count(dev))
+    _launch("capacity_fit", dev, pod_req.data_ptr(),
+            None if zero_req is None else zero_req.data_ptr(),
+            alloc.data_ptr(), requested.data_ptr(),
+            None if cap is None else pod_count.data_ptr(),
+            None if cap is None else allowed_pods.data_ptr(),
+            fit.data_ptr(), None if cap is None else cap.data_ptr(),
+            c, n, r, block_n)
+    return fit, cap
 
 
 def capacity_fit(pod_req: torch.Tensor, alloc: torch.Tensor,
-                 requested: torch.Tensor) -> torch.Tensor:
-    """The resource-fit mask [P, N] bool (zero-request override excluded):
-    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if pod_req.device.type == "cpu":
-        return capacity_fit_plain(pod_req, alloc, requested)
-    dev = pod_req.device
-    for nm, t in (("pod_req", pod_req), ("alloc", alloc),
-                  ("requested", requested)):
-        _check_cuda(f"capacity_fit {nm}", t, torch.int32, 2, dev)
-    p, r = pod_req.shape
-    n = alloc.shape[0]
-    if alloc.shape[1] != r or tuple(requested.shape) != (n, r):
-        raise ValueError(f"capacity_fit: shapes {tuple(pod_req.shape)}, "
-                         f"{tuple(alloc.shape)}, {tuple(requested.shape)}")
-    if not NUM_BASE_RESOURCES <= r <= CAPACITY_MAX_R:
-        raise ValueError(f"capacity_fit: {r} resource columns, the kernel "
-                         f"takes {NUM_BASE_RESOURCES}..{CAPACITY_MAX_R}")
-    out = torch.empty((p, n), dtype=torch.bool, device=dev)
-    if p == 0 or n == 0:
-        return out
-    fn = _lib("capacity_fit")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(pod_req.data_ptr(), alloc.data_ptr(), requested.data_ptr(),
-                  out.data_ptr(), p, n, r, stream)
-    _raise_on(code, "capacity_fit")
-    LAUNCHES["capacity_fit"] += 1
-    return out
+                 requested: torch.Tensor,
+                 zero_req: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The resource-fit mask [P, N] bool: without `zero_req` the TPU
+    kernel's function (zero-request override excluded), with it the
+    override folded in (predicates.resources_fit). The CUDA kernel on a
+    CUDA tensor (one launch), the plain version on a CPU tensor."""
+    if _on_card(pod_req, "capacity_fit"):
+        return _capacity_launch(pod_req, zero_req, alloc, requested, None,
+                                None, "capacity_fit")[0]
+    return capacity_fit_plain(pod_req, alloc, requested, zero_req)
+
+
+def capacity_headroom(pod_req: torch.Tensor, zero_req: torch.Tensor,
+                      alloc: torch.Tensor, requested: torch.Tensor,
+                      pod_count: torch.Tensor, allowed_pods: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wave's capacity step: (fit [C, N] bool with the zero-request
+    override, cap [C, N] int32 headroom of class_capacity_plain). One
+    launch of the capacity kernel on a CUDA tensor (counted under
+    LAUNCHES["capacity_fit"]), the plain versions on a CPU tensor."""
+    if _on_card(pod_req, "capacity_headroom"):
+        return _capacity_launch(pod_req, zero_req, alloc, requested,
+                                pod_count, allowed_pods,
+                                "capacity_headroom")
+    return (capacity_fit_plain(pod_req, alloc, requested, zero_req),
+            class_capacity_plain(pod_req, zero_req, alloc, requested,
+                                 pod_count, allowed_pods))
 
 
 # ---------------------------------------------------------------------------
@@ -293,25 +445,23 @@ def incidence_matmul_plain(a: torch.Tensor, b_t: torch.Tensor
     return (a.to(torch.float64) @ b_t.to(torch.float64).T).to(torch.int32)
 
 
-_sms: Dict[int, int] = {}
-
-
 def incidence_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """A int32 [M, L] x B_t int8 [N, L] -> int32 [M, N]: the CUDA kernel on
     a CUDA tensor (pre-pass and tensor-core product, one count), the plain
     version on a CPU tensor."""
-    if a.device.type == "cpu":
+    if not _on_card(a, "incidence_matmul"):
         return incidence_matmul_plain(a, b_t)
-    dev = a.device
-    _check_cuda("incidence_matmul a", a, torch.int32, 2, dev)
-    _check_cuda("incidence_matmul b_t", b_t, torch.int8, 2, dev)
+    dev = a.get_device()
+    if a.dim() != 2 or b_t.dim() != 2:
+        raise ValueError(f"incidence_matmul: shapes {tuple(a.shape)} x "
+                         f"{tuple(b_t.shape)}, expected [M, L] x [N, L]")
     m, l = a.shape
     n = b_t.shape[0]
-    if b_t.shape[1] != l:
-        raise ValueError(f"incidence_matmul: shapes {tuple(a.shape)} x "
-                         f"{tuple(b_t.shape)}")
+    _check_cuda("incidence_matmul", dev,
+                (("a", a, torch.int32, (m, l)),
+                 ("b_t", b_t, torch.int8, (n, l))))
     if m == 0 or n == 0 or l == 0:
-        return torch.zeros((m, n), dtype=torch.int32, device=dev)
+        return torch.zeros((m, n), dtype=torch.int32, device=a.device)
     # the kernel reads rows of L % 8 == 0 bytes from 16-byte aligned bases;
     # the snapshot pads L to 8, other callers pay a copy
     if l % 8:
@@ -322,23 +472,14 @@ def incidence_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
         a = a.clone()
     if b_t.data_ptr() % 16:
         b_t = b_t.clone()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    plan = incidence_plan(m, n, l, _sms[idx])
-    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    plan = incidence_plan(m, n, l, _sm_count(dev))
+    out = a.new_empty((m, n))
     # scratch: the planes int8 [4, m, l_pad], then the pre-pass counts
     # int32 [m, chunks] (4 * m * l_pad is a multiple of 512: aligned)
     planes_bytes = INCIDENCE_PLANES * m * plan["l_pad"]
-    scratch = torch.empty(planes_bytes + 4 * m * plan["chunks"],
-                          dtype=torch.int8, device=dev)
-    fn = _lib("incidence_matmul")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(a.data_ptr(), b_t.data_ptr(), scratch.data_ptr(),
-                  scratch.data_ptr() + planes_bytes, out.data_ptr(), m, n, l,
-                  plan["tile_m"], plan["split"], plan["kb_per_split"],
-                  plan["l_pad"], stream)
-    _raise_on(code, "incidence_matmul")
-    LAUNCHES["incidence_matmul"] += 1
+    scratch = b_t.new_empty(planes_bytes + 4 * m * plan["chunks"])
+    _launch("incidence_matmul", dev, a.data_ptr(), b_t.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + planes_bytes,
+            out.data_ptr(), m, n, l, plan["tile_m"], plan["split"],
+            plan["kb_per_split"], plan["l_pad"])
     return out

@@ -159,11 +159,10 @@ def resources_fit(pod_req: torch.Tensor, zero_req: torch.Tensor,
     """PodFitsResources (predicates.go:556-624) minus the pod-count check.
 
     pod_req [P,R], zero_req [P], alloc [N,R], requested [N,R] -> bool [P,N].
-    The capacity mask is ops/kernels.capacity_fit (the CUDA kernel on a
-    CUDA tensor); an all-zero request skips the resource checks entirely
-    (predicates.go:576-578)."""
-    return kernels.capacity_fit(pod_req, alloc, requested) \
-        | zero_req[:, None]
+    One call of ops/kernels.capacity_fit (one launch of the CUDA kernel on
+    a CUDA tensor), which also folds in the override that lets an all-zero
+    request skip the resource checks entirely (predicates.go:576-578)."""
+    return kernels.capacity_fit(pod_req, alloc, requested, zero_req)
 
 
 def pod_count_fit(pod_count: torch.Tensor, allowed_pods: torch.Tensor

@@ -4,10 +4,13 @@ path, exactly. On CPU tensors the wrappers run the plain versions and
 leave the launch counters at 0; the CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu.engine import waves as jax_waves
 from kubernetes_tpu.ops.affinity import (
     precompute_static as jax_precompute_static,
 )
@@ -17,6 +20,7 @@ from kubernetes_tpu.ops.pallas_kernels import (
 )
 from kubernetes_tpu.ops.predicates import resources_fit as jax_resources_fit
 from kubernetes_tpu.state.snapshot import R_OVERLAY, R_SCRATCH
+from kubernetes_tpu_torch.engine import waves as torch_waves
 from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.ops.affinity import (
     precompute_static as torch_precompute_static,
@@ -79,6 +83,191 @@ def test_capacity_storage_spill_cases():
 
 
 I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def headroom_case(rng, c, n, r, kind):
+    """A wave's capacity operands: class requests [c, r] with zero-request
+    classes and classes that request no overlay, nodes [n, r] with and
+    without overlay capacity, over-committed nodes (requested > alloc,
+    also in columns a class requests nothing of), nodes at or past their
+    pod ceiling (pod_count >= allowed_pods), and requests exactly on the
+    limit. kind="extremes" adds int32 extremes whose sums and differences
+    wrap (and negative requests and counts, which int32 can hold)."""
+    req = rng.integers(0, 400, size=(c, r)).astype(np.int64)
+    req[rng.random((c, r)) < 0.2] = 0
+    zero = rng.random(c) < 0.2
+    req[zero] = 0
+    alloc = rng.integers(0, 4000, size=(n, r)).astype(np.int64)
+    alloc[rng.random(n) < 0.4, R_OVERLAY] = 0
+    requested = (alloc * rng.random((n, r))).astype(np.int64)
+    over = rng.random((n, r)) < 0.1
+    requested[over] = alloc[over] + rng.integers(1, 500, size=over.sum())
+    allowed = rng.integers(0, 120, size=n)
+    pod_count = np.maximum(allowed - rng.integers(1, 60, size=n), 0)
+    full = rng.random(n) < 0.2
+    pod_count[full] = allowed[full] + rng.integers(0, 3, size=full.sum())
+    k = min(c, n) // 2
+    req[:k] = np.maximum(alloc[:k] - requested[:k], 0)   # on the limit
+    req[zero] = 0
+    if kind == "extremes":
+        ext = np.array([I32_MIN, I32_MIN + 1, -1, 1, I32_MAX - 1, I32_MAX])
+        for a in (req, alloc, requested):
+            hit = rng.random(a.shape) < 0.15
+            a[hit] = rng.choice(ext, size=hit.sum())
+        req[zero] = 0
+        for a in (allowed, pod_count):
+            hit = rng.random(n) < 0.15
+            a[hit] = rng.choice(ext, size=hit.sum())
+    i32 = lambda a: a.astype(np.int32)
+    return (i32(req), zero, i32(alloc), i32(requested), i32(pod_count),
+            i32(allowed))
+
+
+HEADROOM_CASES = [
+    pytest.param(16, 300, 5, "seeded", id="16-300-5"),
+    pytest.param(16, 300, 7, "seeded", id="16-300-7"),
+    pytest.param(1, 257, 5, "seeded", id="1-257-5"),
+    pytest.param(9, 64, 12, "seeded", id="9-64-12"),
+    pytest.param(16, 300, 5, "extremes", id="16-300-5-extremes"),
+    pytest.param(16, 300, 7, "extremes", id="16-300-7-extremes"),
+    pytest.param(5, 129, 9, "extremes", id="5-129-9-extremes"),
+]
+
+
+@pytest.mark.parametrize("c,n,r,kind", HEADROOM_CASES)
+def test_capacity_fit_with_override_matches_reference(c, n, r, kind):
+    """The mask with the zero-request override folded in equals the
+    reference's resources_fit and its Pallas kernel (interpret mode) with
+    the override ORed in; without zero_req the override stays out."""
+    rng = np.random.default_rng(c * 100 + n + r + len(kind))
+    req, zero, alloc, requested, _, _ = headroom_case(rng, c, n, r, kind)
+    got = kernels.capacity_fit(t(req), t(alloc), t(requested),
+                               t(zero)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_resources_fit(req, zero, alloc, requested)))
+    pallas = np.asarray(capacity_fits_pallas(req, alloc, requested,
+                                             interpret=True))
+    np.testing.assert_array_equal(got, pallas | zero[:, None])
+    np.testing.assert_array_equal(
+        kernels.capacity_fit(t(req), t(alloc), t(requested)).numpy(), pallas)
+
+
+@pytest.mark.parametrize("c,n,r,kind", HEADROOM_CASES)
+def test_class_capacity_plain_matches_reference(c, n, r, kind):
+    """The headroom's plain version equals the reference's
+    waves._class_capacity cell for cell, and the wave's capacity step
+    (_class_capacity: capacity_headroom on CPU tensors) returns it beside
+    the reference's resources_fit mask."""
+    rng = np.random.default_rng(c * 100 + n + r + len(kind))
+    req, zero, alloc, requested, pod_count, allowed = headroom_case(
+        rng, c, n, r, kind)
+    want = np.asarray(jax_waves._class_capacity(
+        {"req": req, "zero_req": zero},
+        {"alloc": alloc, "allowed_pods": allowed},
+        SimpleNamespace(requested=requested, pod_count=pod_count)))
+    got = kernels.class_capacity_plain(t(req), t(zero), t(alloc),
+                                       t(requested), t(pod_count),
+                                       t(allowed))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    fit, cap = torch_waves._class_capacity(
+        {"req": t(req), "zero_req": t(zero)},
+        {"alloc": t(alloc), "allowed_pods": t(allowed)},
+        SimpleNamespace(requested=t(requested), pod_count=t(pod_count)))
+    np.testing.assert_array_equal(cap.numpy(), want)
+    np.testing.assert_array_equal(
+        fit.numpy(), np.asarray(jax_resources_fit(req, zero, alloc,
+                                                  requested)))
+    # the mask and cap are not derived from each other: over-committed
+    # nodes fit a class that requests nothing of the over-committed column
+    # while its headroom there can still be 0, and the reverse
+    if kind == "seeded":
+        assert (fit.numpy() != (cap.numpy() > 0)).any()
+
+
+def kernel_capacity_arithmetic(req, zero, alloc, requested, pod_count,
+                               allowed):
+    """The CUDA kernel's arithmetic, in numpy, in its own order: int32
+    sums and differences wrapped as its uint32 ones are, a per-node
+    remainder row, scr_rem as rem_s - node_o, `headroom` = 2^31 - 1 for
+    req <= 0, 0 for rem <= 0, else the quotient of the two non-negative
+    values; fit and cap computed side by side, the override on both."""
+    def w(x):
+        return (x.astype(np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+    def headroom(rem, rq):
+        q = np.maximum(rem, 0) // np.maximum(rq, 1)
+        return np.where(rq <= 0, I32_MAX, np.where(rem <= 0, 0, q))
+
+    q_, a_, r_ = requested[None], alloc[None], req[:, None]   # [1|C, N|1, R]
+    rem = w(a_.astype(np.int64) - q_)
+    plain = [k for k in range(req.shape[1]) if k not in (R_SCRATCH,
+                                                         R_OVERLAY)]
+    ok = (w(r_[..., plain] + q_[..., plain].astype(np.int64))
+          <= a_[..., plain]).all(axis=-1)
+    room = headroom(rem[..., plain], r_[..., plain]).min(axis=-1)
+    a_s, a_o = alloc[:, R_SCRATCH], alloc[:, R_OVERLAY]
+    n_s, n_o = requested[:, R_SCRATCH].astype(np.int64), requested[:, R_OVERLAY]
+    p_s, p_o = req[:, None, R_SCRATCH].astype(np.int64), req[:, None, R_OVERLAY]
+    no_ov = a_o == 0
+    storage = np.where(no_ov, w(w(w(p_s + p_o) + n_s) + n_o) <= a_s,
+                       (w(p_s + n_s) <= a_s) & (w(p_o + n_o) <= a_o))
+    fit = (ok & storage) | zero[:, None]
+    scr_rem = np.where(no_ov, w(rem[0, :, R_SCRATCH] - n_o),
+                       rem[0, :, R_SCRATCH])
+    room = np.minimum(room, headroom(scr_rem, np.where(no_ov, w(p_s + p_o),
+                                                       p_s)))
+    room = np.where(no_ov, room,
+                    np.minimum(room, headroom(rem[0, :, R_OVERLAY], p_o)))
+    count_cap = np.maximum(w(allowed.astype(np.int64) - pod_count), 0)
+    cap = np.minimum(np.where(zero[:, None], I32_MAX, room), count_cap)
+    return fit, cap.astype(np.int32)
+
+
+@pytest.mark.parametrize("c,n,r,kind", HEADROOM_CASES)
+def test_capacity_kernel_arithmetic_matches_plain(c, n, r, kind):
+    """The kernel's restructured arithmetic (one pass over a node's row,
+    shared remainders, unsigned divides after the clamps) equals both
+    plain versions exactly."""
+    rng = np.random.default_rng(c * 100 + n + r + len(kind))
+    case = headroom_case(rng, c, n, r, kind)
+    fit, cap = kernels.capacity_headroom(*(t(a) for a in case))
+    got_fit, got_cap = kernel_capacity_arithmetic(*case)
+    np.testing.assert_array_equal(got_fit, fit.numpy())
+    np.testing.assert_array_equal(got_cap, cap.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 5000])
+@pytest.mark.parametrize("c", [1, 2, 3, 7, 16, 130])
+def test_capacity_plan_covers_each_cell_once(c, n):
+    """The capacity kernel's launch plan (grid (C, ceil(N / block_n)), one
+    thread per cell) covers every (class, node) cell exactly once, takes
+    only a block size the source launches, and at the wave and verdict
+    shapes (16 or 1 classes x 5,000 nodes) gives each of the 132 SMs a
+    block."""
+    block_n = kernels.capacity_plan(c, n)
+    assert block_n in (32, 64, 128)
+    gx, gy = c, -(-n // block_n)
+    assert gy <= 65535
+    cells = np.zeros((gx, gy * block_n), np.int16)
+    for x in range(gx):
+        for y in range(gy):
+            cells[x, y * block_n:(y + 1) * block_n] += 1
+    assert (cells[:, :n] == 1).all()
+    if n == 5000:
+        assert gx * gy >= 132
+    if gx * gy < 132:
+        assert block_n == 32
+    elif block_n < 128:
+        assert c * -(-n // (2 * block_n)) < 132
+
+
+@pytest.mark.parametrize("c,n", [(0, 5), (5, 0), (-1, 5)])
+def test_capacity_plan_refuses_empty(c, n):
+    with pytest.raises(ValueError):
+        kernels.capacity_plan(c, n)
+
+
 
 
 def incidence_case(rng, m, l, n, wmax):
@@ -254,6 +443,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     rng = np.random.default_rng(3)
     pod_req, _, alloc, requested = cap_case(rng, 4, 9, 5)
     kernels.capacity_fit(t(pod_req), t(alloc), t(requested))
+    kernels.capacity_headroom(*(t(a) for a in headroom_case(
+        rng, 4, 9, 5, "seeded")))
     kernels.incidence_matmul(t(np.ones((2, 3), np.int32)),
                              t(np.ones((4, 3), np.int8)))
     assert kernels.LAUNCHES == {"capacity_fit": 0, "incidence_matmul": 0}
