@@ -13,8 +13,9 @@ phase fails. Phases:
      (exact equality) at the main path's shapes and at ragged ones: for
      the capacity kernel both outputs (the mask without and with the
      zero-request override, and the wave call's mask and headroom), also
-     with over-committed nodes, pod counts past their ceiling and int32
-     extremes that wrap, and refused plans; for the incidence kernel also
+     with over-committed nodes, pod counts past their ceiling, int32
+     extremes that wrap and R = 12 and 40 (past the kernel's register
+     window), and refused arguments; for the incidence kernel also
      wide-weight rows (entries up to +-2^22), int32 extremes whose sums
      still fit int32, L % 16 == 8, the wrapper's padding of L and of
      misaligned operands, and a refused launch plan. Time kernel, plain
@@ -454,6 +455,10 @@ def check_kernels(kernels, extender_ops):
     shapes = [(16, N_NODES, 5), (16, N_NODES, 7)]
     shapes += [(p, n, r) for p in (1, 7, 130) for n in (1, 255, 257, N_NODES)
                for r in (5, 7)]
+    # extended-resource columns: R > 8 runs the kernel's loop past its
+    # register window
+    shapes += [(p, n, r) for p, n in ((16, N_NODES), (7, 257), (130, 255))
+               for r in (12, 40)]
     for p, n, r in shapes:
         for extremes in (False, True):
             ops = headroom_operands(
@@ -465,23 +470,24 @@ def check_kernels(kernels, extender_ops):
             checks += 1
     log(f"capacity kernel == plain at {checks} cases (exact; mask, mask "
         f"with override, wave mask + headroom; P in 1/7/16/130 x N in "
-        f"1/255/257/{N_NODES} x R in 5/7, zero-request classes, nodes "
-        f"without overlay, over-committed nodes, pod counts at and past "
-        f"the ceiling, and int32 extremes that wrap)")
-    # the C side refuses plans and arguments it cannot run (it returns
-    # before any pointer is read: 1 stands for a device pointer)
+        f"1/255/257/{N_NODES} x R in 5/7, and R in 12/40 at three shapes; "
+        f"zero-request classes, nodes without overlay, over-committed "
+        f"nodes, pod counts at and past the ceiling, and int32 extremes "
+        f"that wrap)")
+    # the C side refuses arguments it cannot run (it returns before any
+    # pointer is read: 1 stands for a device pointer)
     ptrs = (1,) * 8
     no_counts = (1, 1, 1, 1, None, None, 1, 1)
-    for what, args in (("block_n 48", ptrs + (16, N_NODES, 5, 48)),
-                       ("R = 4", ptrs + (16, N_NODES, 4, 128)),
-                       ("R = 41", ptrs + (16, N_NODES, 41, 128)),
-                       ("65,536 node blocks", ptrs + (16, 65536 * 32, 5, 32)),
+    for what, args in (("R = 4", ptrs + (16, N_NODES, 4)),
+                       ("R = 41", ptrs + (16, N_NODES, 41)),
+                       ("65,536 node blocks", ptrs + (16, 65536 * 128, 5)),
                        ("headroom without pod counts",
-                        no_counts + (16, N_NODES, 5, 128))):
+                        no_counts + (16, N_NODES, 5))):
         code = kernels._lib("capacity_fit")(*args, None)
         if code != kernels.BAD_PLAN:
             fail(f"capacity_fit_launch took {what} (returned {code})")
-    log("capacity launch refuses bad plans and a headroom without counts")
+    log("capacity launch refuses R out of range, a grid past 65,535 node "
+        "blocks and a headroom without counts")
 
     max_err["incidence_matmul"] = check_incidence(kernels, extender_ops, dev)
     inc_shapes = [("evaluate_pod",) + tuple(extender_ops)]
@@ -509,9 +515,12 @@ def check_kernels(kernels, extender_ops):
     def cap_call():
         return kernels.capacity_fit(req, alloc, requested)
 
+    prof = profile_kernels(cap_call)
     cap = {
         "ms": time_ms(cap_call),
         "device_ms": time_device_ms(cap_call),
+        "profiler_ms": None if prof is None else {
+            k: v for k, v in prof.items() if "capacity" in k},
         "plain_ms": time_ms(
             lambda: kernels.capacity_fit_plain(req, alloc, requested)),
         "plain_device_ms": time_device_ms(
@@ -521,9 +530,6 @@ def check_kernels(kernels, extender_ops):
                               p * n * (2 * r + 1) / CUDA_CORE_OPS_PER_S),
         "bound_by": "bytes", "shape": f"P={p} N={n} R={r}",
     }
-    prof = profile_kernels(cap_call)
-    cap["profiler_ms"] = None if prof is None else {
-        k: v for k, v in prof.items() if "capacity" in k}
     # the wave's call: mask with the override and headroom in one launch
     ops = headroom_operands(rng, req, alloc, requested)
 

@@ -3,7 +3,7 @@
 trees can be compared on one card in turns.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--mode MODE]
-                         [--plans] [--breakdown]
+                         [--repeats K]
 
 DIR (default: this checkout) is the root of a tree that holds
 kubernetes_tpu_torch/; its ops/kernels.py builds its own csrc/ into its
@@ -25,19 +25,23 @@ chip_smoke.py times them: back-to-back calls through the wrapper, device
 time warm, and device time with L2 cleanly flushed).
 
 --mode capacity: capacity_fit at [16 x 5000], R = 5 (chip_smoke.py's
-operands: `ms`, `device_ms`, the profiler's kernel time), and the wave's
-capacity step on a real mid-drain state (5,000 hollow nodes after a
-15,000-pod binpack drain, 16 class rows of fresh binpack pods): on a tree
-with kernels.capacity_headroom that is waves._class_capacity (one launch),
-on an older tree what its _wave_once ran for the same step,
-predicates.resources_fit plus waves._class_capacity. Both outputs are
-held against the plain versions first. Times the step (`wave_ms`,
-`wave_device_ms`) and counts, with torch.profiler, the device operations
-of the step and of one whole _wave_once. --breakdown adds the host cost
-of each step of capacity_fit's wrapper (perf_counter_ns, mean over many
-calls, as the tree's wrapper performs them); --plans (a tree with
-kernels.capacity_plan) times every block size the kernel takes, for the
-mask alone and with the headroom, at the wave and verdict shapes.
+operands: `ms`, `device_ms`, the profiler's kernel time, and `ms` again
+after the profiler's session), and the wave's capacity step on a real
+mid-drain state (5,000 hollow nodes after a 15,000-pod binpack drain, 16
+class rows of fresh binpack pods): on a tree with
+kernels.capacity_headroom that is waves._class_capacity (one launch), on
+an older tree what its _wave_once ran for the same step,
+predicates.resources_fit plus waves._class_capacity. The mask (and the
+headroom, where the tree has the fused call) is held against the plain
+versions first. Times the step (`wave_ms`, `wave_device_ms`) and counts,
+with torch.profiler, the device operations of the step and of one whole
+_wave_once.
+
+--mode drain: chip_smoke.py's binpack drain (30,000 binpack pods on
+5,000 hollow nodes, a fresh cache each time, through
+SchedulingEngine.schedule(mode="wave")) K times after one small warm-up
+drain; one JSON line per drain with its wall time, waves and the
+engine's spans.
 
 Prints the card line and the card's clocks too. Needs a CUDA device.
 """
@@ -81,90 +85,6 @@ def incidence(cs, kernels, label, dev):
             "device_ms": cs.time_device_ms(call),
             "cold_clean_ms": cs.time_cold_ms(call, flush, clean=True)}),
             flush=True)
-
-
-def per_call_ns(fn, calls=4000, chunk=100):
-    """Mean host ns of one call of fn (perf_counter_ns), over `calls`
-    calls in chunks; the device is synchronised between chunks, outside
-    the timed part, so the launch queue never fills."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    total = 0
-    for _ in range(calls // chunk):
-        t0 = time.perf_counter_ns()
-        for _ in range(chunk):
-            fn()
-        total += time.perf_counter_ns() - t0
-        torch.cuda.synchronize()
-    return total / calls
-
-
-def host_breakdown(kernels, req, alloc, requested):
-    """Host ns of each step of the tree's capacity_fit wrapper, timed
-    alone, and of the whole call. "C call" is the bound C function with
-    an empty output (it returns before launching): ctypes alone."""
-    import torch
-    dev = req.device
-    idx = dev.index
-    p, r = req.shape
-    n = alloc.shape[0]
-    out = torch.empty((p, n), dtype=torch.bool, device=dev)
-    fn = kernels._lib("capacity_fit")
-    ptrs = (req.data_ptr(), alloc.data_ptr(), requested.data_ptr(),
-            out.data_ptr())
-    steps = {}
-    if hasattr(kernels, "capacity_headroom"):
-        stream = torch._C._cuda_getCurrentRawStream(idx)
-        plan = kernels.capacity_plan(p, n, kernels._sm_count(idx))
-        args = (req.data_ptr(), None, alloc.data_ptr(),
-                requested.data_ptr(), None, None, out.data_ptr(), None)
-        ops = [("pod_req", req, torch.int32, (p, r)),
-               ("alloc", alloc, torch.int32, (n, r)),
-               ("requested", requested, torch.int32, (n, r))]
-        steps["dispatch (is_cuda)"] = lambda: kernels._on_card(req, "x")
-        steps["one combined check"] = lambda: kernels._check_cuda(
-            "x", idx, ops)
-        steps["torch.empty [P,N] bool"] = lambda: torch.empty(
-            (p, n), dtype=torch.bool, device=dev)
-        steps["plan (cached)"] = lambda: kernels.capacity_plan(
-            p, n, kernels._sm_count(idx))
-        steps["current device + raw stream"] = lambda: (
-            torch._C._cuda_getDevice(),
-            torch._C._cuda_getCurrentRawStream(idx))
-        steps["4 data_ptr"] = lambda: tuple(t.data_ptr() for t in (
-            req, alloc, requested, out))
-        steps["C call, no launch"] = lambda: fn(*args, 0, n, r, plan,
-                                               stream)
-        steps["C call with launch"] = lambda: fn(*args, p, n, r, plan,
-                                                stream)
-    else:
-        def check3():
-            for t in (req, alloc, requested):
-                kernels._check_cuda("x", t, torch.int32, 2, dev)
-
-        def device_ctx():
-            with torch.cuda.device(dev):
-                pass
-
-        steps["dispatch (device.type)"] = lambda: req.device.type == "cpu"
-        steps["3 x _check_cuda"] = check3
-        steps["shape checks"] = lambda: (
-            alloc.shape[1] != r or tuple(requested.shape) != (n, r))
-        steps["torch.empty [P,N] bool"] = lambda: torch.empty(
-            (p, n), dtype=torch.bool, device=dev)
-        steps["torch.cuda.device context"] = device_ctx
-        steps["current_stream(dev).cuda_stream"] = lambda: \
-            torch.cuda.current_stream(dev).cuda_stream
-        steps["4 data_ptr"] = lambda: tuple(t.data_ptr() for t in (
-            req, alloc, requested, out))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        steps["C call, no launch"] = lambda: fn(*ptrs, 0, n, r, stream)
-        steps["C call with launch"] = lambda: fn(*ptrs, p, n, r, stream)
-    row = {k: per_call_ns(f) / 1e3 for k, f in steps.items()}
-    row["whole wrapper"] = per_call_ns(
-        lambda: kernels.capacity_fit(req, alloc, requested)) / 1e3
-    return row
 
 
 def wave_state(dev):
@@ -220,7 +140,7 @@ def progress(label, what):
           file=sys.stderr, flush=True)
 
 
-def capacity(cs, kernels, label, dev, plans, breakdown):
+def capacity(cs, kernels, label, dev):
     import numpy as np
     import torch
     from kubernetes_tpu_torch.engine import waves
@@ -286,44 +206,29 @@ def capacity(cs, kernels, label, dev, plans, breakdown):
         else sum(wave_ops.values()),
         "classes": int(cls["req"].shape[0]),
     })
-    if breakdown:
-        progress(label, "host breakdown")
-        row["host_us"] = host_breakdown(kernels, req, alloc, requested)
     print(json.dumps(row), flush=True)
-    if breakdown and step_ops:
-        print(json.dumps({"tree": label, "wave_step_device_ops": step_ops}),
-              flush=True)
-    if plans:
-        progress(label, "plans")
-        fn = kernels._lib("capacity_fit")
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        out = {}
-        for c in (16, 1):
-            ops = cs.headroom_operands(
-                rng, *cs.capacity_operands(rng, c, 5000, 5, dev))
-            f = torch.empty((c, 5000), dtype=torch.bool, device=dev)
-            k = torch.empty((c, 5000), dtype=torch.int32, device=dev)
-            ptrs = [t.data_ptr() for t in ops]
-            want_fit = kernels.capacity_fit_plain(ops[0], ops[2], ops[3],
-                                                  ops[1])
-            want = kernels.class_capacity_plain(*ops)
-            for what, cap_ptr in (("mask", None), ("headroom", k.data_ptr())):
-                for block_n in (32, 64, 128, 256):
-                    def launch(block_n=block_n, cap_ptr=cap_ptr):
-                        code = fn(*ptrs, f.data_ptr(), cap_ptr, c, 5000, 5,
-                                  block_n, stream)
-                        if code != 0:
-                            cs.fail(f"plan {block_n} refused ({code})")
-                    launch()
-                    if not torch.equal(f, want_fit) or (
-                            cap_ptr and not torch.equal(k, want)):
-                        cs.fail(f"plan {block_n}: {what} != plain")
-                    out[f"C={c} {what} block_n={block_n}"] = \
-                        cs.time_device_ms(launch)
-            out[f"C={c} chosen"] = kernels.capacity_plan(
-                c, 5000, kernels._sm_count(dev.index))
-        print(json.dumps({"tree": label, "plans_device_ms": out}),
-              flush=True)
+
+
+def drain(cs, kernels, label, repeats):
+    import torch
+    from kubernetes_tpu_torch.engine.scheduler_engine import SchedulingEngine
+    from kubernetes_tpu_torch.models import hollow
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    kernels.build()
+    SchedulingEngine(cs.build_cache(hollow.hollow_nodes(512))).schedule(
+        hollow.binpack_pods(3000), mode="wave")
+    for i in range(repeats):
+        eng = SchedulingEngine(cs.build_cache(hollow.hollow_nodes(cs.N_NODES)))
+        pods = hollow.binpack_pods(cs.N_PODS)
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        eng.schedule(pods, mode="wave")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(json.dumps({"tree": label, "drain": i, "wall_s": wall,
+                          "waves": eng.last_wave_stats["waves"],
+                          "spans_ms": cs.spans("engine.")}), flush=True)
 
 
 def main() -> int:
@@ -331,10 +236,9 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--label", default="")
-    ap.add_argument("--mode", choices=("incidence", "capacity"),
+    ap.add_argument("--mode", choices=("incidence", "capacity", "drain"),
                     default="incidence")
-    ap.add_argument("--plans", action="store_true")
-    ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -355,8 +259,10 @@ def main() -> int:
     cs.log_clocks(f"before {label}")
     if args.mode == "incidence":
         incidence(cs, kernels, label, dev)
+    elif args.mode == "capacity":
+        capacity(cs, kernels, label, dev)
     else:
-        capacity(cs, kernels, label, dev, args.plans, args.breakdown)
+        drain(cs, kernels, label, args.repeats)
     cs.log_clocks(f"after {label}")
     print(cs.card_facts())
     return 0

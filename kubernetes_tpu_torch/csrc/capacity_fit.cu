@@ -29,9 +29,11 @@
 // nodes, R = 5) the launch reads 200 KB and writes 400 KB, a fraction of
 // a microsecond at 3.35 TB/s; tensor cores and TMA have nothing to do.
 // What costs is the launch and the chain of dependent memory round trips
-// in each thread. So: one thread per cell, many small blocks (every SM
-// gets several; variant runs on the card found one class per thread
-// fastest); no shared-memory staging of node rows; each thread issues all
+// in each thread. So: one thread per cell, blocks of 128 nodes of one
+// class (640 blocks at the wave shape, every SM gets several; variant runs
+// on the card found one class per thread fastest, and every block size
+// from 32 to 256 within 3% at one class); no shared-memory staging of node
+// rows; each thread issues all
 // loads of its node's rows through the read-only path at once (a warp's
 // reads are contiguous) while the block's first threads copy its class row
 // into shared memory; one barrier; then registers only, and coalesced
@@ -53,8 +55,9 @@ constexpr int kOverlay = 4;
 constexpr int kBaseColumns = 5;  // NUM_BASE_RESOURCES
 constexpr int kMaxR = 40;        // CAPACITY_MAX_R in ops/kernels.py
 constexpr int kRegR = 8;         // columns held in registers; more loop
+constexpr int kBlockN = 128;     // nodes (threads) per block
 constexpr int32_t kBig = 0x7fffffff;
-constexpr int kBadPlan = -1;     // BAD_PLAN in ops/kernels.py
+constexpr int kBadArgs = -1;     // BAD_PLAN in ops/kernels.py
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
@@ -76,10 +79,10 @@ __device__ __forceinline__ int32_t headroom(int32_t rem, int32_t req) {
 }
 
 // One thread per (class, node) cell: blockIdx.x is the class, blockIdx.y
-// a run of blockDim.x nodes, so blocks that run together share node rows
-// in L2.
+// a run of kBlockN nodes, so blocks that run together share node rows in
+// L2.
 template <bool kCap>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBlockN)
     capacity_kernel(const int32_t* __restrict__ pod_req,
                     const uint8_t* __restrict__ zero_req,
                     const int32_t* __restrict__ alloc,
@@ -92,12 +95,12 @@ __global__ void __launch_bounds__(256)
   __shared__ uint8_t s_zero;
   const int c = blockIdx.x;
   // the block's class row, read once
-  for (int k = threadIdx.x; k < R; k += blockDim.x)
+  for (int k = threadIdx.x; k < R; k += kBlockN)
     s_req[k] = __ldg(pod_req + static_cast<int64_t>(c) * R + k);
   if (threadIdx.x == 0) s_zero = zero_req != nullptr ? __ldg(zero_req + c) : 0;
 
   // the node's rows, all loads in flight before the barrier
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  const int n = blockIdx.y * kBlockN + threadIdx.x;
   const bool live = n < N;
   const int64_t row = static_cast<int64_t>(live ? n : 0) * R;
   int32_t a[kRegR], q[kRegR];
@@ -165,24 +168,21 @@ __global__ void __launch_bounds__(256)
 // allowed_pods int32 [N]; fit uint8 [C, N]; cap int32 [C, N] or null (mask
 // only; when given, zero_req, pod_count and allowed_pods must be too). All
 // contiguous on the current device; stream is a cudaStream_t of it.
-// block_n (nodes per block) comes from ops/kernels.capacity_plan. Returns
-// kBadPlan for arguments the kernel cannot run, 0 without launching for an
-// empty output, else the launch's cudaError_t.
+// Returns kBadArgs for arguments the kernel cannot run, 0 without
+// launching for an empty output, else the launch's cudaError_t.
 extern "C" int capacity_fit_launch(const void* pod_req, const void* zero_req,
                                    const void* alloc, const void* requested,
                                    const void* pod_count,
                                    const void* allowed_pods, void* fit,
                                    void* cap, int C, int N, int R,
-                                   int block_n, void* stream) {
-  if (R < kBaseColumns || R > kMaxR || C < 0 || N < 0) return kBadPlan;
-  if (block_n != 32 && block_n != 64 && block_n != 128 && block_n != 256)
-    return kBadPlan;
+                                   void* stream) {
+  if (R < kBaseColumns || R > kMaxR || C < 0 || N < 0) return kBadArgs;
   if (cap != nullptr &&
       (zero_req == nullptr || pod_count == nullptr || allowed_pods == nullptr))
-    return kBadPlan;
+    return kBadArgs;
   if (C == 0 || N == 0) return 0;
-  const dim3 grid(C, (N + block_n - 1) / block_n);
-  if (grid.y > 65535) return kBadPlan;
+  const dim3 grid(C, (N + kBlockN - 1) / kBlockN);
+  if (grid.y > 65535) return kBadArgs;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* req = static_cast<const int32_t*>(pod_req);
   const auto* zero = static_cast<const uint8_t*>(zero_req);
@@ -193,10 +193,10 @@ extern "C" int capacity_fit_launch(const void* pod_req, const void* zero_req,
   auto* f = static_cast<uint8_t*>(fit);
   auto* cp = static_cast<int32_t*>(cap);
   if (cp != nullptr)
-    capacity_kernel<true><<<grid, block_n, 0, s>>>(req, zero, al, rq, pc, ap,
+    capacity_kernel<true><<<grid, kBlockN, 0, s>>>(req, zero, al, rq, pc, ap,
                                                    f, cp, N, R);
   else
-    capacity_kernel<false><<<grid, block_n, 0, s>>>(req, zero, al, rq, pc,
+    capacity_kernel<false><<<grid, kBlockN, 0, s>>>(req, zero, al, rq, pc,
                                                     ap, f, cp, N, R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,6 @@ operands are not on the current one.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -54,15 +53,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # resource columns the capacity kernel takes (kMaxR in the source: a
 # block's class row sits in a static shared array of 40 ints)
 CAPACITY_MAX_R = 40
-# returned by a launch function for a plan it cannot run (never a
-# cudaError_t, which are all >= 0)
+# returned by a launch function for a plan or arguments it cannot run
+# (never a cudaError_t, which are all >= 0)
 BAD_PLAN = -1
 
 # name -> (source file, exported C function, ctypes argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "capacity_fit": ("capacity_fit.cu", "capacity_fit_launch",
-                     (_P,) * 8 + (_I,) * 4 + (_P,)),
+                     (_P,) * 8 + (_I,) * 3 + (_P,)),
     "incidence_matmul": ("incidence_matmul.cu", "incidence_matmul_launch",
                          (_P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
 }
@@ -175,7 +174,8 @@ def _launch(name: str, dev: int, *args) -> None:
         with torch.cuda.device(dev):
             code = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if code == BAD_PLAN:
-        raise RuntimeError(f"{name}: the kernel refused its launch plan")
+        raise RuntimeError(f"{name}: the kernel refused its launch plan "
+                           f"or arguments")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {code}")
     LAUNCHES[name] += 1
@@ -195,26 +195,6 @@ def _sm_count(dev: int) -> int:
 # ---------------------------------------------------------------------------
 # capacity_fit
 # ---------------------------------------------------------------------------
-
-CAPACITY_BLOCK_N = (128, 64, 32)   # nodes per block the plan picks from
-
-
-@functools.lru_cache(maxsize=256)
-def capacity_plan(c: int, n: int, sms: int = 132) -> int:
-    """The launch plan of the capacity kernel for C classes x N nodes on a
-    card with `sms` SMs: block_n, the nodes of one block (one thread per
-    (class, node) cell; grid (C, ceil(N / block_n))). 128, the fastest in
-    variant runs on the card at the wave shape, unless the grid would
-    leave an SM without a block; then the largest of 64 and 32 that does
-    not, else 32. The C side takes block_n in {32, 64, 128, 256} and
-    ceil(N / block_n) <= 65,535, and refuses any other plan."""
-    if c <= 0 or n <= 0:
-        raise ValueError(f"capacity_plan: empty output {c} x {n}")
-    for block_n in CAPACITY_BLOCK_N:
-        if c * -(-n // block_n) >= sms:
-            break
-    return block_n
-
 
 def capacity_fit_plain(pod_req: torch.Tensor, alloc: torch.Tensor,
                        requested: torch.Tensor,
@@ -322,14 +302,13 @@ def _capacity_launch(pod_req, zero_req, alloc, requested, pod_count,
     cap = None if pod_count is None else pod_req.new_empty((c, n))
     if c == 0 or n == 0:
         return fit, cap
-    block_n = capacity_plan(c, n, _sm_count(dev))
     _launch("capacity_fit", dev, pod_req.data_ptr(),
             None if zero_req is None else zero_req.data_ptr(),
             alloc.data_ptr(), requested.data_ptr(),
             None if cap is None else pod_count.data_ptr(),
             None if cap is None else allowed_pods.data_ptr(),
             fit.data_ptr(), None if cap is None else cap.data_ptr(),
-            c, n, r, block_n)
+            c, n, r)
     return fit, cap
 
 
