@@ -39,10 +39,23 @@ phase fails. Phases:
   5. the extender verdict: evaluate_pod for affinity probes against a
      5,000-node cluster holding 3,000 bound mixed-affinity pods, on the
      card and on the CPU: fits and scores agree;
-  6. print the per-kernel summary line, then the result line.
+  6. the pipelined drain, as bench.py run_once runs it: ApiServerLite ->
+     load_cluster -> Scheduler.start() -> Scheduler.run_until_drained()
+     on the card for the density, binpack and mixed_affinity profiles at
+     5,000 nodes x 30,000 pods, each on a fresh store. Every run is
+     audited from the store (every pod bound or provably unschedulable,
+     no node over its CPU, memory or pod count, no pod bound twice; for
+     mixed_affinity also one iso-* pod of an app per host, the symmetry
+     direction, and every pack-* group in one zone). Each kernel's
+     operands at every shape this path launched it with are held against
+     its plain version; then the mixed_affinity drain at 512 x 3,000 runs
+     on the card with overlap on and off and on the CPU: the placements
+     agree;
+  7. print the per-kernel summary line, then the result line.
 
-Launch counts are zeroed just before each main-path run (phases 4 and 5)
-and read just after it; launches made by the comparisons do not count.
+Launch counts are zeroed just before each main-path run (phases 4, 5 and
+6) and read just after it; launches made by the comparisons do not
+count.
 """
 
 from __future__ import annotations
@@ -733,6 +746,302 @@ def verdicts(cache, snap, wl, probes, kernels, evaluate_pod, priorities,
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+PIPE_COUNTERS = ("engine.wave_dispatch", "engine.wave_dispatch_pods",
+                 "engine.affinity_strict_tail", "engine.tail_rounds",
+                 "engine.tail_round_dispatch", "engine.wave_tail_dispatch",
+                 "engine.affinity_fence_requeues",
+                 "engine.fence_reason_capacity", "engine.host_fetch_bytes")
+
+
+class OperandSpy:
+    """Wraps the two kernel wrappers during a main-path run and keeps a
+    copy of the operands of the first launch at each distinct shape, so
+    that the kernels can be held against their plain versions afterwards
+    on exactly what the path gave them. The wrapped functions are the
+    module attributes every caller looks up at call time."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.cap = {}
+        self.inc = {}
+        self._real = (kernels.capacity_fit, kernels.capacity_headroom,
+                      kernels.incidence_matmul)
+
+    def __enter__(self):
+        k = self.kernels
+        fit, head, inc = self._real
+
+        def capacity_fit(pod_req, alloc, requested, zero_req=None):
+            key = ("mask", tuple(pod_req.shape), tuple(alloc.shape),
+                   zero_req is not None)
+            if pod_req.is_cuda and key not in self.cap:
+                self.cap[key] = tuple(
+                    None if t is None else t.clone()
+                    for t in (pod_req, zero_req, alloc, requested))
+            return fit(pod_req, alloc, requested, zero_req)
+
+        def capacity_headroom(*ops):
+            key = ("wave", tuple(ops[0].shape), tuple(ops[2].shape), True)
+            if ops[0].is_cuda and key not in self.cap:
+                self.cap[key] = tuple(t.clone() for t in ops)
+            return head(*ops)
+
+        def incidence_matmul(a, b_t):
+            key = (tuple(a.shape), tuple(b_t.shape))
+            if a.is_cuda and key not in self.inc:
+                self.inc[key] = (a.clone(), b_t.clone())
+            return inc(a, b_t)
+
+        k.capacity_fit = capacity_fit
+        k.capacity_headroom = capacity_headroom
+        k.incidence_matmul = incidence_matmul
+        return self
+
+    def __exit__(self, *exc):
+        k = self.kernels
+        k.capacity_fit, k.capacity_headroom, k.incidence_matmul = self._real
+        return False
+
+    def shapes(self):
+        """The distinct launch shapes seen: capacity (C, N, R), incidence
+        (M, N, L) with L as the caller gave it (the wrapper pads L to a
+        multiple of 8)."""
+        cap = sorted({(k[1][0], k[2][0], k[1][1]) for k in self.cap})
+        inc = sorted({(a[0], b[0], a[1]) for a, b in self.inc})
+        return cap, inc
+
+    def check(self, tag):
+        """Kernel == plain on every captured operand set; returns the
+        largest absolute difference per kernel (0 when exact)."""
+        import torch
+        k = self.kernels
+        err = {"capacity_fit": 0, "incidence_matmul": 0}
+        for key, ops in sorted(self.cap.items(), key=str):
+            if key[0] == "wave":
+                err["capacity_fit"] = max(err["capacity_fit"],
+                                          check_capacity_outputs(
+                                              k, ops, f"{tag} {key}"))
+                continue
+            pod_req, zero_req, alloc, requested = ops
+            got = k.capacity_fit(pod_req, alloc, requested, zero_req)
+            want = k.capacity_fit_plain(pod_req, alloc, requested,
+                                        zero_req)
+            err["capacity_fit"] = max(err["capacity_fit"],
+                                      abs_err(got, want))
+            if not torch.equal(got, want):
+                fail(f"{tag}: capacity mask != plain at {key}")
+        for key, (a, b) in sorted(self.inc.items()):
+            got = k.incidence_matmul(a, b)
+            want = k.incidence_matmul_plain(a, b)
+            err["incidence_matmul"] = max(err["incidence_matmul"],
+                                          abs_err(got, want))
+            if not torch.equal(got, want):
+                fail(f"{tag}: incidence_matmul != plain at {key}")
+        log(f"{tag}: kernel == plain at every launch shape of the run "
+            f"(capacity {sorted(self.cap, key=str)}; incidence "
+            f"{sorted(self.inc)})")
+        return err
+
+
+def pipelined(mods, profile, n_nodes, n_pods, device=None, overlap=True,
+              max_batch=0, spy=None):
+    """One drain of `profile` through Scheduler.run_until_drained on a
+    fresh store, as bench.py run_once runs it. Returns (api, totals,
+    counters, spans, wall, launches)."""
+    import torch
+    hollow, api_mod, Scheduler, kernels, COUNTERS = mods
+    api = api_mod.ApiServerLite(max_log=max(200_000,
+                                            3 * (n_nodes + n_pods)))
+    hollow.load_cluster(api, hollow.hollow_nodes(n_nodes),
+                        hollow.PROFILES[profile](n_pods))
+    sched = Scheduler(api, record_events=False, device=device)
+    sched.start()
+    # whether each dispatch returned while its wave job was still running
+    # (the overlap the pipeline exists for)
+    busy = []
+    dispatch = sched.engine.dispatch_waves
+
+    def dispatch_and_note(*args, **kw):
+        handle = dispatch(*args, **kw)
+        if handle is not None:
+            busy.append(not handle.is_ready())
+        return handle
+
+    sched.engine.dispatch_waves = dispatch_and_note
+    # the harvest's whole wall time (its device wait, tail, fence and
+    # assume are the engine's own pipeline.* spans)
+    harvest_s = []
+    harvest = sched.engine.harvest_waves
+
+    def timed_harvest(handle):
+        t = time.perf_counter()
+        out = harvest(handle)
+        harvest_s.append(time.perf_counter() - t)
+        return out
+
+    sched.engine.harvest_waves = timed_harvest
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    if spy is not None:
+        with spy:
+            tot = sched.run_until_drained(max_batch=max_batch,
+                                          overlap=overlap)
+    else:
+        tot = sched.run_until_drained(max_batch=max_batch, overlap=overlap)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    snap = COUNTERS.snapshot()
+    counters = {k: snap.get(k, (0, 0.0))[0] for k in PIPE_COUNTERS}
+    counters["dispatches_returned_busy"] = sum(busy)
+    span_ms = {k: 1e3 * t for k, (_, t) in sorted(snap.items())
+               if k.startswith("pipeline.") and t > 0}
+    span_ms["harvest_waves"] = 1e3 * sum(harvest_s)
+    sched.engine.close()
+    return api, tot, counters, span_ms, wall, launches
+
+
+def audit_store(api, profile, n_pods):
+    """Audit a drain from the store: every pod bound or provably
+    unschedulable (fits no node of the final state), no node over its
+    CPU, memory or pod count, no pod bound twice; for mixed_affinity the
+    required (anti-)affinity of the profile. Returns (bound, unbound)."""
+    import numpy as np
+    from kubernetes_tpu_torch.models.hollow import HOSTNAME_KEY, ZONE_KEY
+    pods, _ = api.list("Pod")
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    if len(pods) != n_pods:
+        fail(f"{profile}: {len(pods)} pods in the store, {n_pods} created")
+    used = {name: [0, 0, 0] for name in nodes}
+    for p in pods:
+        if p.node_name:
+            r = p.resource_request()
+            u = used[p.node_name]
+            u[0] += r.milli_cpu
+            u[1] += r.memory
+            u[2] += 1
+    names = sorted(nodes)
+    alloc_cpu = np.array([nodes[n].allocatable.milli_cpu for n in names])
+    alloc_mem = np.array([nodes[n].allocatable.memory for n in names])
+    allowed = np.array([nodes[n].allowed_pod_number for n in names])
+    u = np.array([used[n] for n in names], dtype=np.int64)
+    over = (u[:, 0] > alloc_cpu) | (u[:, 1] > alloc_mem) | (u[:, 2] > allowed)
+    if over.any():
+        i = int(np.nonzero(over)[0][0])
+        fail(f"{profile}: node {names[i]} over allocatable: {u[i]}")
+    binds = {}
+    for e in api._log:
+        if e.kind == "Pod" and e.type == "MODIFIED" and e.obj.node_name:
+            binds.setdefault(e.obj.key(), []).append(e.obj.node_name)
+    dups = sum(1 for v in binds.values() if len(v) > 1)
+    if dups:
+        fail(f"{profile}: {dups} pods bound more than once")
+    unbound = [p for p in pods if not p.node_name]
+    free_cpu = alloc_cpu - u[:, 0]
+    free_mem = alloc_mem - u[:, 1]
+    room = u[:, 2] < allowed
+    for shape in {(p.resource_request().milli_cpu,
+                   p.resource_request().memory) for p in unbound}:
+        if ((free_cpu >= shape[0]) & (free_mem >= shape[1]) & room).any():
+            fail(f"{profile}: an unbound pod of {shape} fits a node")
+    if profile == "mixed_affinity":
+        zone_of = {n: nodes[n].labels.get(ZONE_KEY) for n in names}
+        host_of = {n: nodes[n].labels.get(HOSTNAME_KEY) for n in names}
+        anti, labeled, group_zones = {}, {}, {}
+        for p in pods:
+            if not p.node_name:
+                continue
+            app = p.labels.get("app", "")
+            key = (host_of[p.node_name], app)
+            labeled[key] = labeled.get(key, 0) + 1
+            aff = p.affinity
+            if aff is not None and aff.pod_anti_affinity is not None:
+                anti[key] = anti.get(key, 0) + 1
+            if aff is not None and aff.pod_affinity is not None:
+                group_zones.setdefault(app, set()).add(zone_of[p.node_name])
+        # one iso-* pod of an app per host, and no other pod labeled with
+        # that app beside it (the symmetry direction)
+        bad = [k for k, c in anti.items() if c > 1 or labeled[k] > 1]
+        if bad:
+            fail(f"{profile}: anti-affinity broken on {len(bad)} "
+                 f"(host, app) pairs, e.g. {bad[0]}")
+        split = {a: z for a, z in group_zones.items() if len(z) > 1}
+        if split or not group_zones:
+            fail(f"{profile}: affinity groups across zones: {split}")
+        log(f"{profile}: affinity audit clean ({sum(anti.values())} "
+            f"anti-affinity pods on distinct hosts, "
+            f"{len(group_zones)} groups each in one zone)")
+    return len(pods) - len(unbound), len(unbound)
+
+
+def pipelined_drains(mods, card):
+    """Phase 6. Returns (launches summed over the three drains, max
+    abs err per kernel on this path)."""
+    kernels = mods[3]
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    for profile in ("density", "binpack", "mixed_affinity"):
+        spy = OperandSpy(kernels)
+        api, tot, cnt, span_ms, wall, launches = pipelined(
+            mods, profile, N_NODES, N_PODS, spy=spy)
+        cap_shapes, inc_shapes = spy.shapes()
+        bound, unbound = audit_store(api, profile, N_PODS)
+        if profile != "binpack" and unbound:
+            fail(f"pipelined {profile}: {unbound} pods unbound")
+        log(f"pipelined drain {profile}: {N_NODES} nodes x {N_PODS} pods "
+            f"through Scheduler.run_until_drained, bound {bound}, "
+            f"unschedulable {unbound}, wall {wall:.3f} s, "
+            f"{N_PODS / wall:.0f} pods/s, totals {json.dumps(tot)} "
+            f"[{card}]")
+        log(f"pipelined drain {profile} spans (ms): " + json.dumps(span_ms))
+        log(f"pipelined drain {profile} counters: " + json.dumps(cnt))
+        log(f"pipelined drain {profile} launches {launches}, shapes "
+            f"(capacity (C, N, R)) {cap_shapes}, "
+            f"(incidence (M, N, L), L before the wrapper's padding to 8) "
+            f"{inc_shapes}")
+        if launches["capacity_fit"] == 0:
+            fail(f"pipelined {profile}: no capacity launch")
+        if profile == "mixed_affinity":
+            if tot["bound"] != N_PODS:
+                fail(f"pipelined mixed_affinity bound {tot['bound']}")
+            if launches["incidence_matmul"] == 0:
+                fail("pipelined mixed_affinity: no incidence launch")
+        for k, v in spy.check(f"pipelined {profile}").items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+    # card == CPU, and overlap on == off, at 512 x 3,000 mixed_affinity
+    runs = {}
+    for tag, dev, overlap in (("card", None, True),
+                              ("card, overlap off", None, False),
+                              ("CPU", "cpu", True)):
+        api, tot, cnt, span_ms, wall, _l = pipelined(
+            mods, "mixed_affinity", 512, 3000, device=dev,
+            overlap=overlap, max_batch=512)
+        log(f"pipelined mixed_affinity 512 x 3000 ({tag}): wall "
+            f"{wall:.3f} s, spans (ms) {json.dumps(span_ms)}")
+        runs[tag] = ({p.key(): p.node_name for p in api.list("Pod")[0]},
+                     tot, cnt)
+    ref = runs["CPU"]
+    for tag in ("card", "card, overlap off"):
+        got = runs[tag]
+        diff = sum(got[0][k] != v for k, v in ref[0].items())
+        if diff or got[1] != ref[1]:
+            fail(f"pipelined mixed_affinity 512 x 3000: {tag} != CPU "
+                 f"({diff} placements; {got[1]} vs {ref[1]})")
+    log(f"pipelined mixed_affinity 512 x 3000 (chunks of 512): card == "
+        f"card with overlap off == CPU, {ref[1]['bound']} bound, "
+        f"counters {json.dumps(ref[2])}")
+    return total, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -742,12 +1051,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from kubernetes_tpu_torch.api import types
+        from kubernetes_tpu_torch.engine.scheduler import Scheduler
         from kubernetes_tpu_torch.engine.scheduler_engine import (
             SchedulingEngine, evaluate_pod)
         from kubernetes_tpu_torch.models import hollow
         from kubernetes_tpu_torch.ops import affinity, kernels
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
+        from kubernetes_tpu_torch.server import apiserver_lite
         from kubernetes_tpu_torch.state.classes import ClassBatch
+        from kubernetes_tpu_torch.utils.trace import COUNTERS
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -797,7 +1109,13 @@ def main() -> int:
     if launches_eval["incidence_matmul"] == 0:
         fail("evaluate_pod never launched the incidence kernel")
 
-    # 6. summary
+    # 6. the pipelined drains
+    launches_pipe, err_pipe = pipelined_drains(
+        (hollow, apiserver_lite, Scheduler, kernels, COUNTERS), card)
+    for k, v in err_pipe.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 7. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -807,14 +1125,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"kubernetes_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": launches_drain[name] + launches_eval[name],
+            "launches": (launches_drain[name] + launches_eval[name]
+                         + launches_pipe[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "cold_ms": t.get("cold_ms"),
             **{k: v for k, v in t.items() if k.startswith("wave_")
                and "profiler" not in k}})
-    log(f"launches: drains {launches_drain}, verdicts {launches_eval}")
+    log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
+        f"pipelined drains {launches_pipe}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

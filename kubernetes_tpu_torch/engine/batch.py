@@ -1,7 +1,7 @@
 """Strict batch placement: the reference's one-pod-at-a-time loop on device.
 
 PyTorch port of kubernetes_tpu/engine/batch.py (NodeState, _batch_pre,
-place_batch / gather_place_batch), affinity-inert branch. The reference
+place_batch / gather_place_batch, check_affinity_priorities). The reference
 runs the loop as a lax.scan; here it is a Python loop over the pods whose
 carry (the mutable node state and the round-robin counter) stays on the
 device, so a step costs no host sync. Each step re-evaluates the
@@ -16,8 +16,9 @@ selectHost parity (generic_scheduler.go:88-160):
 
 The reference's counter is uint32; the port carries it as an int64 tensor
 holding the same value (0 <= counter < 2^32) and wraps it explicitly.
-Inter-pod affinity and selector spreading on this path belong to a later
-slice of the port: passing ``aff`` raises NotImplementedError.
+With ``aff`` the loop also carries the inter-pod affinity occupancy
+(commdom [C, L], committed [C, N], comm_cnt [C]) that the reference's
+sequential loop sees through the scheduler cache.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from kubernetes_tpu_torch.api.types import MAX_PRIORITY
+from kubernetes_tpu_torch.ops import affinity as aff_ops
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prio
 from kubernetes_tpu_torch.ops.predicates import int_matmul
@@ -150,16 +152,19 @@ def _batch_pre(pods: Arrays, nodes: Arrays, priorities
     return static_fit, tt_cnt, na_cnt, static_score
 
 
-def _check_inert(priorities, aff) -> None:
-    if aff is not None:
-        raise NotImplementedError(
-            "inter-pod affinity and selector spreading in the strict loop "
-            "belong to the pipelined-drain slice of the port")
+def check_affinity_priorities(priorities, aff, extra_score) -> None:
+    """Affinity-priority guard shared by every batch-placement entry point
+    (place_batch, waves.tail_rounds_loop): SelectorSpread/InterPodAffinity
+    in the priority set without class data or a frozen extra_score would
+    contribute silent zeros — a parity bug, never a fallback."""
     for nm, _w in priorities:
-        if nm in prio.AFFINITY_PRIORITIES:
+        if nm in prio.AFFINITY_PRIORITIES and aff is None \
+                and extra_score is None:
             raise ValueError(
                 f"{nm} in the priority set requires affinity/spread class "
-                "data — silent zero contributions are a parity bug")
+                "data (pass aff= from ops.affinity.AffinityData, or a "
+                "frozen extra_score) — silent zero contributions are a "
+                "parity bug, not a fallback")
 
 
 def copy_state(state: NodeState) -> NodeState:
@@ -168,26 +173,48 @@ def copy_state(state: NodeState) -> NodeState:
 
 def gather_place_batch(cls_arr: Arrays, pc: torch.Tensor, nodes: Arrays,
                        state: NodeState, rr: torch.Tensor, priorities,
-                       aff: Arrays = None):
+                       aff: Arrays = None,
+                       aff_mode: Tuple[bool, bool, bool] = (False, False,
+                                                            False),
+                       aff_init=None, extra_score: torch.Tensor = None):
     """place_batch over per-pod rows gathered from class rows (pc = class
     index per pod). The capacity-independent [C, N] tensors are computed
-    once at class level and gathered."""
-    _check_inert(priorities, aff)
+    once at class level and gathered; `aff` stays class-level (the loop
+    indexes it by class) and `extra_score` is class-level [C, N]."""
     pcl = pc.long()
     parr = {k: v[pcl] for k, v in cls_arr.items()}
+    ex = extra_score[pcl] if extra_score is not None else None
     pre = tuple(a[pcl] for a in _batch_pre(cls_arr, nodes, priorities))
-    return place_batch(parr, nodes, state, rr, priorities, pre=pre)
+    return place_batch(parr, nodes, state, rr, priorities, aff=aff, pc=pc,
+                       aff_mode=aff_mode, aff_init=aff_init, extra_score=ex,
+                       pre=pre)
 
 
 def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
                 rr_counter: torch.Tensor, priorities, aff: Arrays = None,
+                pc: torch.Tensor = None,
+                aff_mode: Tuple[bool, bool, bool] = (False, False, False),
+                aff_init=None, extra_score: torch.Tensor = None,
                 pre: Tuple[torch.Tensor, ...] = None):
     """Place every pod of the batch in order. ``state`` is not modified
     (the loop works on a copy); rr_counter is an int64 scalar tensor.
 
+    `aff`/`pc`/`aff_mode` switch on the inter-pod affinity + selector-spread
+    machinery (ops/affinity.py): aff holds the CLASS-level static arrays,
+    pc [P] maps each pod to its class, and aff_mode = (fits_on, prio_on,
+    spread_on) gates which parts run. `aff_init` = (commdom, committed,
+    comm_cnt) seeds the occupancy carry with pods committed before this
+    batch (the wave pass of the same chunk).
+
     Returns (selected [P] int32 node index or -1, fit_count [P] int32,
              final NodeState, final rr_counter)."""
-    _check_inert(priorities, aff)
+    fits_on, prio_on, spread_on = aff_mode
+    any_aff = aff is not None and (fits_on or prio_on or spread_on)
+    check_affinity_priorities(priorities, aff, extra_score)
+    w_ip = sum(w for nm, w in priorities
+               if nm == "InterPodAffinityPriority") if prio_on else 0
+    w_sp = sum(w for nm, w in priorities
+               if nm == "SelectorSpreadPriority") if spread_on else 0
     if pre is None:
         pre = _batch_pre(pods, nodes, priorities)
     static_fit, tt_cnt, na_cnt, static_score = pre
@@ -203,6 +230,26 @@ def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
     counter = rr_counter.to(torch.int64).clone()
     selected = torch.empty(p_count, dtype=I32, device=dev)
     fit_counts = torch.empty(p_count, dtype=I32, device=dev)
+    if any_aff:
+        c_dim = aff["m_aff"].shape[0]
+        # labels_aff (when present) is the PROJECTED domain incidence the
+        # aff arrays' domain axes are sliced to (the pipelined tail's
+        # column projection); the predicate/priority arrays keep the full
+        # label matrix
+        labels = aff["labels_aff"] if "labels_aff" in aff \
+            else nodes["labels"]
+        pre_aff = aff_ops.precompute_static(aff, labels)
+        if aff_init is not None:
+            commdom, committed, comm_cnt = (t.to(I32).clone()
+                                            for t in aff_init)
+        else:
+            commdom = torch.zeros((c_dim, labels.shape[1]), dtype=I32,
+                                  device=dev)
+            committed = torch.zeros((c_dim, n), dtype=I32, device=dev)
+            comm_cnt = torch.zeros(c_dim, dtype=I32, device=dev)
+        # the class of every pod on the host, once: the loop indexes the
+        # class-level affinity arrays with it
+        pc_h = (pc.tolist() if pc is not None else [0] * p_count)
     for i in range(p_count):
         p_req = pods["req"][i]
         p_vol_hard, p_vol_ro = pods["vol_hard"][i], pods["vol_ro"][i]
@@ -230,9 +277,22 @@ def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
                & preds.ports_fit(pods["ports"][i][None], state.port_bitmap)[0]
                & disk_ok & pd_ok)
         fits = static_fit[i] & dyn
+        if fits_on:
+            fits = fits & aff_ops.step_fits(aff, pre_aff, pc_h[i], commdom,
+                                            comm_cnt, labels)
         fit_count = fits.sum(dtype=I32)
         scores = _step_scores(pods["nonzero"][i], state, alloc, tt_cnt[i],
                               na_cnt[i], static_score[i], fits, priorities)
+        if extra_score is not None:
+            scores = scores + extra_score[i]
+        if prio_on:
+            cnt_ip = aff_ops.step_prio_counts(aff, pre_aff, pc_h[i], commdom,
+                                              labels)
+            scores = scores + w_ip * aff_ops.interpod_score(cnt_ip, fits)
+        if spread_on:
+            cnt_sp = aff_ops.step_spread_counts(aff, pc_h[i], committed)
+            scores = scores + w_sp * aff_ops.spread_score(
+                aff, aff["sp_has"][pc_h[i]], cnt_sp, fits)
         masked = torch.where(fits, scores, -1)
         ties = masked == masked.amax()
         num_ties = ties.sum(dtype=torch.int64)
@@ -249,6 +309,15 @@ def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
         state = _commit(state, sel, ok, p_req, pods["nonzero"][i],
                         pods["ports"][i], p_vol_hard, p_vol_ro, p_pd_req,
                         pd_new_sel)
+        if any_aff:
+            # affinity/spread carry: the committed pod's node-domain row
+            # joins its class's occupancy (the on-device AssumePod for
+            # topology state)
+            gain = ok.to(I32)
+            c = pc_h[i]
+            commdom[c] += labels[safe_sel].to(I32) * gain
+            committed[c, safe_sel] += gain
+            comm_cnt[c] += gain
         selected[i] = sel
         fit_counts[i] = fit_count
     return selected, fit_counts, state, counter

@@ -17,9 +17,16 @@ semantics are the reference's, unchanged:
   4. A pod whose class fits NO node under the frozen state is
      unschedulable (capacity only shrinks as pods commit).
 
-The reference iterates waves in a lax.while_loop on the device; here the
-loop is Python with one ``active.any()`` host check per wave (typically
-1-3 waves). Inputs are CLASS-level arrays; fits/scores are [C, N].
+With the affinity arrays of a wave-eligible class set, each wave also
+re-evaluates the required-anti mask against a per-node occupancy carry
+(_wave_aff_mask); classes whose required (anti-)affinity the counters
+cannot express go to the seeded strict tail, which tail_rounds_loop runs
+as conflict rounds (or engine/batch.py as a per-pod scan).
+
+The reference iterates waves (and tail rounds) in a lax.while_loop on
+the device; here the loops are Python with one ``active.any()`` host
+check per wave or round. Inputs are CLASS-level arrays; fits/scores are
+[C, N].
 
 Integer parity notes: the RR counter is uint32 in the reference; the port
 carries it as an int64 tensor in [0, 2^32) and reads it as int32 where the
@@ -38,9 +45,11 @@ from kubernetes_tpu_torch.api.types import MAX_PRIORITY
 from kubernetes_tpu_torch.engine.batch import (
     NodeState,
     U32_MASK,
+    check_affinity_priorities,
     counter_as_i32,
     gather_place_batch,
 )
+from kubernetes_tpu_torch.ops import affinity as aff_ops
 from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prio
@@ -191,28 +200,49 @@ def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int
     return out[:n]
 
 
-def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
-               pod_class: torch.Tensor, active: torch.Tensor,
-               counter: torch.Tensor,
-               priorities: Tuple[Tuple[str, int], ...]):
-    """One wave. Returns (selected [P] (-1 = no fit), accepted [P] bool,
-    fit_count [P] int32, new state, new counter)."""
-    P = pod_class.shape[0]
-    n = nodes["alloc"].shape[0]
-    dev = pod_class.device
-    pcl = pod_class.long()
-    iota = torch.arange(P, dtype=I32, device=dev)
+def _wave_aff_mask(aff: Arrays, committed: torch.Tensor) -> torch.Tensor:
+    """Per-wave required-anti-affinity mask [C, N] from the PER-NODE
+    occupancy carry. Wave-eligible anti classes have singleton topology
+    domains (AffinityData.wave_strict routes everything else to the seeded
+    strict tail), so domain occupancy IS per-node occupancy and the mask
+    never touches the label axis. A node n is forbidden for class c when it
+    carries (a) a static forbid (existing pods' matching anti terms,
+    precomputed [C, N] at encoding build), (b) a committed pod matching one
+    of c's own required anti terms whose key n has, or (c) a committed pod
+    of class d whose anti term matches c (the symmetry direction,
+    predicates.go:1146) under a key n has. key_node[c, a, n] = node n has
+    term (c, a)'s topology key.
 
-    res_fit, cap = _class_capacity(cls, nodes, state)   # [C,N] each
-    fits = pre["static_fit"] & preds.node_condition_fit(cls, nodes) \
-        & _dynamic_fits(cls, nodes, state, res_fit)     # [C,N]
+    Both contractions run through int_matmul, exact here: their sums range
+    over the pods on ONE node (committed[:, n] sums to at most the node's
+    allowed pods, 110 on the hollow nodes), times at most the A anti slots
+    for the symmetry sum — far below 2^24."""
+    m_anti = aff["m_anti"].to(I32)                     # [C, A, C]
+    kn = aff["key_node"].to(I32)                       # [C, A, N]
+    c, a, _ = m_anti.shape
+    n = committed.shape[1]
+    m2 = m_anti.reshape(c * a, c)
+    # own anti: committed pods matching (c, a) resident on n, key present
+    occ = int_matmul(m2, committed.T).reshape(c, a, n)
+    own = (occ * kn).sum(dim=1, dtype=I32)             # [C, N]
+    # symmetry: committed pods of class d at n whose term a matches c
+    kc = (kn * committed[:, None, :]).reshape(c * a, n)
+    sym = int_matmul(m2.T, kc.T)                       # [C, N]
+    forb = own + sym + aff["static_forbid"].to(I32)
+    return forb == 0
+
+
+def _pick(fits: torch.Tensor, scores: torch.Tensor, pod_class: torch.Tensor,
+          active: torch.Tensor, counter: torch.Tensor):
+    """Tie sets and the FIFO draws of one wave (or tail round): returns
+    (masked [C,N], ties [C,N], fit_count [P], selected [P] (-1 = none),
+    new counter)."""
+    pcl = pod_class.long()
     fitcnt = fits.sum(dim=1, dtype=I32)                 # [C]
-    scores = _wave_scores(cls, nodes, state, pre, fits, priorities)
     masked = torch.where(fits, scores, -1)
     best = masked.amax(dim=1, keepdim=True)
     ties = (masked == best) & fits                      # [C,N]
     m = ties.sum(dim=1, dtype=I32)                      # [C]
-
     fc = fitcnt[pcl]                                    # [P]
     # FIFO draw from the shared RR counter (selectHost counter discipline)
     multi = (active & (fc > 1)).to(I32)
@@ -225,8 +255,31 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
     sel = torch.where(~active | (fc == 0), -1,
                       torch.where(fc == 1, sel_single, sel_multi))
     new_counter = (counter + multi.sum(dtype=torch.int64)) & U32_MASK
+    return masked, ties, fc, sel, new_counter
 
-    # ---- per-node FIFO conflict resolution --------------------------------
+
+def _special_classes(cls: Arrays) -> torch.Tensor:
+    """Classes with host ports or volumes: at most one commit per node per
+    wave (their within-wave interactions are not modeled)."""
+    return ((cls["ports"][:, 0] >= 0)
+            | (cls["vol_hard"].sum(dim=1, dtype=I32)
+               + cls["vol_ro"].sum(dim=1, dtype=I32)
+               + cls["pd_req"].sum(dim=1, dtype=I32) > 0))
+
+
+def _accept(cls: Arrays, nodes: Arrays, state: NodeState, cap: torch.Tensor,
+            masked: torch.Tensor, ties: torch.Tensor, sel: torch.Tensor,
+            pod_class: torch.Tensor, special_cls: torch.Tensor,
+            priorities: Tuple[Tuple[str, int], ...]):
+    """Per-node FIFO conflict resolution: pods that picked the same node
+    are ordered FIFO; the longest prefix run of same-class pods that still
+    fits (exact integer capacity) and keeps the node's score at or above
+    the frozen runner-up commits. Returns (order [P], s_sel, s_class,
+    safe_sel, special, acc_s) in node-sorted order."""
+    P = pod_class.shape[0]
+    n = nodes["alloc"].shape[0]
+    dev = pod_class.device
+    iota = torch.arange(P, dtype=I32, device=dev)
     placeable = sel >= 0
     key = torch.where(placeable, sel, n).to(torch.int64) * P + iota
     order = torch.argsort(key, stable=True)
@@ -242,10 +295,6 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
     same_run = (same_run - same_run[bs]) == 0
     safe_sel = s_sel.clamp(min=0).long()
     cap_lim = cap[s_class, safe_sel].clamp(max=K_WAVE)
-    special_cls = ((cls["ports"][:, 0] >= 0)
-                   | (cls["vol_hard"].sum(dim=1, dtype=I32)
-                      + cls["vol_ro"].sum(dim=1, dtype=I32)
-                      + cls["pd_req"].sum(dim=1, dtype=I32) > 0))
     special = special_cls[s_class]
     thr = torch.where(ties, -1, masked).amax(dim=1)     # [C]
     r_eff = torch.minimum(rank_in_seg, cap_lim)
@@ -266,10 +315,16 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
     fail = (~acc_core).to(I32)
     pre_fail = torch.cumsum(fail, 0, dtype=I32) - fail
     acc_s = acc_core & ((pre_fail - pre_fail[bs]) == 0)
-    accepted = torch.zeros(P, dtype=torch.bool, device=dev)
-    accepted[order] = acc_s
+    return order, s_sel, s_class, safe_sel, special, acc_s
 
-    # ---- commit (batched AssumePod) ---------------------------------------
+
+def _commit(cls: Arrays, nodes: Arrays, state: NodeState,
+            s_sel: torch.Tensor, s_class: torch.Tensor,
+            safe_sel: torch.Tensor, acc_s: torch.Tensor,
+            special: torch.Tensor) -> NodeState:
+    """Batched AssumePod of the accepted rows (node-sorted order);
+    `special` marks the rows of port/volume classes."""
+    n = nodes["alloc"].shape[0]
     seg_ids = torch.where(acc_s, s_sel, n).long()
     gain = acc_s.to(I32)
     requested = state.requested + _segment_sum(
@@ -309,39 +364,282 @@ def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
         pd_new.append(cls["pd_req_count"][s_class][sp][:, k] - overlap)
     pd_counts = state.pd_counts.clone()
     pd_counts[sp_rows] += torch.stack(pd_new, dim=1)
+    return NodeState(requested, nonzero, pod_count, port_bitmap,
+                     vol_present, vol_rw, pd_present, pd_counts)
 
-    new_state = NodeState(requested, nonzero, pod_count, port_bitmap,
-                          vol_present, vol_rw, pd_present, pd_counts)
-    return sel, accepted, fc, new_state, new_counter
+
+def _wave_once(cls: Arrays, nodes: Arrays, state: NodeState, pre: Arrays,
+               pod_class: torch.Tensor, active: torch.Tensor,
+               counter: torch.Tensor,
+               priorities: Tuple[Tuple[str, int], ...],
+               aff: Arrays = None, committed: torch.Tensor = None):
+    """One wave. With `aff` given, the required-anti mask is re-evaluated
+    against the per-node occupancy carry `committed` [C, N] and commits
+    update it (the on-device topology AssumePod). Returns (selected [P]
+    (-1 = no fit), accepted [P] bool, fit_count [P] int32, new state, new
+    counter, new committed (None without `aff`))."""
+    P = pod_class.shape[0]
+    res_fit, cap = _class_capacity(cls, nodes, state)   # [C,N] each
+    fits = pre["static_fit"] & preds.node_condition_fit(cls, nodes) \
+        & _dynamic_fits(cls, nodes, state, res_fit)     # [C,N]
+    if aff is not None:
+        fits = fits & _wave_aff_mask(aff, committed)
+    scores = _wave_scores(cls, nodes, state, pre, fits, priorities)
+    masked, ties, fc, sel, new_counter = _pick(fits, scores, pod_class,
+                                               active, counter)
+    special_cls = _special_classes(cls)
+    if aff is not None:
+        # self-anti classes commit at most one pod per node per wave: the
+        # second pod of the same FIFO run would land in a domain its first
+        # just made forbidden (AffinityData.wave_gate)
+        special_cls = special_cls | aff["wave_gate"]
+    order, s_sel, s_class, safe_sel, special, acc_s = _accept(
+        cls, nodes, state, cap, masked, ties, sel, pod_class, special_cls,
+        priorities)
+    accepted = torch.zeros(P, dtype=torch.bool, device=pod_class.device)
+    accepted[order] = acc_s
+    new_state = _commit(cls, nodes, state, s_sel, s_class, safe_sel, acc_s,
+                        special)
+    if aff is not None:
+        # topology-occupancy commit: each accepted pod ticks its (class,
+        # node) cell, visible to the NEXT wave's mask (and to the seeded
+        # strict tail / harvest fence afterwards)
+        committed = committed.index_put(
+            (s_class[acc_s], s_sel[acc_s].long()),
+            torch.ones_like(s_sel[acc_s]), accumulate=True)
+    return sel, accepted, fc, new_state, new_counter, committed
 
 
 def waves_loop(cls: Arrays, nodes: Arrays, state: NodeState,
                pod_class: torch.Tensor, counter: torch.Tensor,
                priorities: Tuple[Tuple[str, int], ...],
-               max_waves: int = 32, pre: Arrays = None):
+               max_waves: int = 32, extra_score: torch.Tensor = None,
+               aff: Arrays = None, committed0: torch.Tensor = None,
+               active0: torch.Tensor = None, pre: Arrays = None):
     """Iterate waves until no pod is active or max_waves ran. One host
     check (``active.any()``) per wave.
 
-    Returns (selected [P], fit_count [P], still_active [P] bool,
-             counter (int64 scalar tensor), waves_used, final state);
+    With `aff`: committed0 seeds the [C, N] per-node topology occupancy
+    carry (the engine's cumulative fence-accepted commits, so earlier
+    chunks' placements are visible) and the per-wave mask + occupancy
+    commit run inside the loop; active0 masks out pods routed to the
+    seeded strict tail (AffinityData.wave_strict) — they exit with
+    selected = -1 and still_active = 0 and the harvest places them.
+    `extra_score` [C, N] adds the batch-frozen spread/interpod scores.
+
+    Returns (packed, final state[, committed]) with packed = int32
+    [selected(P), fit_count(P), still_active(P), counter, waves_used]
+    (the counter's uint32 bits read as int32, as the reference packs it);
     still_active pods exhausted max_waves (the caller finishes them with
-    the strict loop)."""
+    the strict loop). The trailing occupancy is returned only when `aff`
+    is given."""
     P = pod_class.shape[0]
     dev = pod_class.device
     if pre is None:
         pre = precompute(cls, nodes, priorities)
-    active = torch.ones(P, dtype=torch.bool, device=dev)
+    if extra_score is not None:  # batch-frozen spread/interpod scores
+        pre = dict(pre, static_score=pre["static_score"] + extra_score)
+    committed = committed0.to(I32) if aff is not None else None
+    active = active0 if active0 is not None \
+        else torch.ones(P, dtype=torch.bool, device=dev)
     fsel = torch.full((P,), -1, dtype=I32, device=dev)
     ffc = torch.zeros(P, dtype=I32, device=dev)
     w = 0
     while w < max_waves and bool(active.any()):
-        sel, accepted, fc, state, counter = _wave_once(
-            cls, nodes, state, pre, pod_class, active, counter, priorities)
+        sel, accepted, fc, state, counter, committed = _wave_once(
+            cls, nodes, state, pre, pod_class, active, counter, priorities,
+            aff=aff, committed=committed)
         fsel = torch.where(active & accepted, sel, fsel)
         ffc = torch.where(active, fc, ffc)
         active = active & ~accepted & (sel >= 0)
         w += 1
-    return fsel, ffc, active, counter, w, state
+    packed = torch.cat([fsel, ffc, active.to(I32),
+                        counter_as_i32(counter).reshape(1),
+                        torch.full((1,), w, dtype=I32, device=dev)])
+    if aff is None:
+        return packed, state
+    return packed, state, committed
+
+
+def frozen_affinity_scores(cls: Arrays, nodes: Arrays, state: NodeState,
+                           aff: Arrays, weights: Tuple[int, int]
+                           ) -> torch.Tensor:
+    """SelectorSpread / InterPodAffinity scores [C, N] against the
+    batch-frozen cluster state, for the wave engine's additive static score
+    (weights = (w_interpod, w_spread)). Wave semantics score these once per
+    BATCH, not per wave — within-batch drift of preferred-affinity/spread
+    counts is the reference's documented wave-mode approximation; only the
+    REQUIRED fit side is re-evaluated per wave. The fit mask takes one
+    capacity-kernel launch (predicates.resources_fit); the interpod counts
+    take the stacked static incidence product (affinity.precompute_static,
+    the incidence kernel on the card), over `labels_aff` when the caller's
+    aff arrays are sliced to a projected domain axis."""
+    w_ip, w_sp = weights
+    res_fit = preds.resources_fit(cls["req"], cls["zero_req"],
+                                  nodes["alloc"], state.requested)
+    fits = preds.static_fits(cls, nodes) \
+        & preds.node_condition_fit(cls, nodes) \
+        & _dynamic_fits(cls, nodes, state, res_fit)
+    extra = torch.zeros(fits.shape, dtype=I32, device=fits.device)
+    if w_ip:
+        lab = aff["labels_aff"] if "labels_aff" in aff else nodes["labels"]
+        pre = aff_ops.precompute_static(aff, lab)
+        extra = extra + w_ip * aff_ops.interpod_score(pre["prio_counts"],
+                                                      fits)
+    if w_sp:
+        extra = extra + w_sp * aff_ops.spread_score(
+            aff, aff["sp_has"], aff["sp_static"], fits)
+    return extra
+
+
+def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
+                     pod_class: torch.Tensor, counter: torch.Tensor,
+                     priorities: Tuple[Tuple[str, int], ...],
+                     aff: Arrays = None,
+                     aff_mode: Tuple[bool, bool, bool] = (False, False,
+                                                          False),
+                     aff_init=None, pre: Arrays = None):
+    """The seeded strict tail as CONFLICT ROUNDS: sequential depth is the
+    number of rounds, not the number of tail pods, with required-
+    (anti-)affinity semantics exact at every commit. Each round
+
+      1. re-evaluates the REQUIRED mask for every class against the
+         cumulative occupancy carry (affinity.step_fits_all over the
+         projected domain columns), plus exact capacity predicates and
+         scores;
+      2. places every still-active pod wave-style (FIFO prefix RR draws,
+         per-node FIFO conflict resolution, the score-aware window);
+      3. gates the commits the round-start mask cannot see: a class still
+         BOOTSTRAPPING an allow-side group commits at most ONE pod per
+         round, and classes coupled through any required ANTI term commit
+         at most one pod per round ACROSS the whole coupled pool;
+      4. retires placed pods; fit_count==0 pods stay active while any
+         commit lands and retire as unschedulable the first round nothing
+         commits, which is also the loop exit.
+
+    The reference runs this as one lax.while_loop; here it is a Python
+    loop with one host check (``active.any()``) per round. Spread scoring
+    is not modeled (the harvest tail never runs it).
+
+    Returns (packed, final NodeState) with packed = int32 [selected(P),
+    fit_count(P), counter, rounds_used]."""
+    fits_on, prio_on, spread_on = aff_mode
+    if spread_on:
+        raise ValueError("tail_rounds_loop does not model spread scoring "
+                         "(the harvest tail runs with spread off)")
+    check_affinity_priorities(priorities, aff, None)
+    any_aff = aff is not None and (fits_on or prio_on)
+    P = pod_class.shape[0]
+    N = nodes["alloc"].shape[0]
+    C = cls["req"].shape[0]
+    dev = pod_class.device
+    pcl = pod_class.long()
+    iota = torch.arange(P, dtype=torch.int64, device=dev)
+    if pre is None:
+        pre = precompute(cls, nodes, priorities)
+    w_ip = sum(w for nm, w in priorities
+               if nm == "InterPodAffinityPriority") if prio_on else 0
+    if any_aff:
+        labels = aff["labels_aff"] if "labels_aff" in aff \
+            else nodes["labels"]
+        pre_aff = aff_ops.precompute_static(aff, labels)
+        l_dim = labels.shape[1]
+        # anti-coupled pool: classes in ANY required anti relation, as
+        # matching target or term owner — their commits can shrink a
+        # same-round mask, so the pool shares one commit quota
+        m_anti_b = aff["m_anti"].bool()
+        anti_pool = m_anti_b.any(dim=2).any(dim=1) \
+            | m_anti_b.any(dim=1).any(dim=0)
+        boot_candidate = aff["aff_active"] & ~aff["aff_has_static"]
+        m_aff = aff["m_aff"].to(I32)
+    else:
+        labels = torch.zeros((N, 1), dtype=torch.int8, device=dev)
+        l_dim = 1
+    if aff_init is not None:
+        commdom, committed, comm_cnt = (t.to(I32) for t in aff_init)
+    else:
+        commdom = torch.zeros((C, l_dim), dtype=I32, device=dev)
+        committed = torch.zeros((C, N), dtype=I32, device=dev)
+        comm_cnt = torch.zeros(C, dtype=I32, device=dev)
+    special_cls = _special_classes(cls)
+    active = torch.ones(P, dtype=torch.bool, device=dev)
+    fsel = torch.full((P,), -1, dtype=I32, device=dev)
+    ffc = torch.zeros(P, dtype=I32, device=dev)
+    w = 0
+    while w <= P and bool(active.any()):
+        # ---- exact round-start evaluation, class-level [C, N] -----------
+        res_fit, cap = _class_capacity(cls, nodes, state)
+        fits_c = pre["static_fit"] & preds.node_condition_fit(cls, nodes) \
+            & _dynamic_fits(cls, nodes, state, res_fit)
+        if fits_on:
+            fits_c = fits_c & aff_ops.step_fits_all(aff, pre_aff, commdom,
+                                                    comm_cnt, labels)
+        scores_c = _wave_scores(cls, nodes, state, pre, fits_c, priorities)
+        if prio_on:
+            cnt = aff_ops.step_prio_counts_all(aff, pre_aff, commdom,
+                                               labels)
+            scores_c = scores_c + w_ip * aff_ops.interpod_score(cnt, fits_c)
+        # ---- wave-style selection and conflict resolution ---------------
+        masked, ties, fc, sel, new_counter = _pick(fits_c, scores_c,
+                                                   pod_class, active,
+                                                   counter)
+        order, s_sel, s_class, safe_sel, special, acc_s = _accept(
+            cls, nodes, state, cap, masked, ties, sel, pod_class,
+            special_cls, priorities)
+        accepted = torch.zeros(P, dtype=torch.bool, device=dev)
+        accepted[order] = acc_s
+        # ---- the round gates (step 3 of the docstring) ------------------
+        if any_aff:
+            # boot_pending[c]: some active allow term has neither a static
+            # nor a committed match — this round's commit IS the group's
+            # domain choice, so it must be singular
+            dyn_total = (m_aff * comm_cnt[None, None, :]).sum(dim=2,
+                                                              dtype=I32)
+            boot_pending = (boot_candidate & (dyn_total == 0)).any(dim=1)
+            # quota group per class: bootstrapping classes serialize
+            # individually (group id = class index); the anti-coupled pool
+            # shares ONE group (id = C); everyone else is unquota'd
+            cidx = torch.arange(C, dtype=I32, device=dev)
+            qgroup = torch.where(anti_pool, C,
+                                 torch.where(boot_pending, cidx, -1))
+            g = qgroup[pcl]                                   # [P]
+            member = accepted & (g >= 0)
+            oh = member[:, None] & (
+                g[:, None] == torch.arange(C + 1, dtype=I32,
+                                           device=dev)[None, :])
+            rank_in_group = torch.cumsum(oh.to(I32), 0, dtype=I32) \
+                - oh.to(I32)
+            keep = ~member | (rank_in_group[iota, g.clamp(min=0).long()]
+                              == 0)
+            accepted = accepted & keep
+            acc_s = accepted[order]
+        # ---- commit (batched AssumePod, dropped pods stay active) -------
+        state = _commit(cls, nodes, state, s_sel, s_class, safe_sel, acc_s,
+                        special)
+        # occupancy carry: committed pods become visible to the NEXT
+        # round's exact mask
+        gain_p = accepted.to(I32)
+        commdom = commdom.index_add(
+            0, pcl, labels[sel.clamp(min=0).long()].to(I32)
+            * gain_p[:, None])
+        committed = committed.index_put(
+            (pcl[accepted], sel[accepted].long()),
+            torch.ones_like(sel[accepted]), accumulate=True)
+        comm_cnt = comm_cnt.index_add(0, pcl, gain_p)
+        # ---- retire: placed pods always; fit_count==0 pods only once a
+        # round commits nothing (an allow-side commit may still widen
+        # their mask) — which is also the loop's natural exit
+        none_committed = ~accepted.any()
+        retire_unsched = active & (fc == 0) & none_committed
+        done = accepted | retire_unsched
+        fsel = torch.where(accepted, sel, fsel)
+        ffc = torch.where(done, fc, ffc)
+        active = active & ~done
+        counter = new_counter
+        w += 1
+    packed = torch.cat([fsel, ffc, counter_as_i32(counter).reshape(1),
+                        torch.full((1,), w, dtype=I32, device=dev)])
+    return packed, state
 
 
 def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
@@ -357,15 +655,16 @@ def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
     dev = nodes["alloc"].device
     pc_d = torch.from_numpy(np.array(pod_class, dtype=np.int32)).to(dev)
     c0 = torch.tensor(counter & U32_MASK, dtype=torch.int64, device=dev)
-    fsel, ffc, active, ctr, waves_used, state = waves_loop(
-        cls, nodes, state, pc_d, c0, priorities, max_waves)
-    final_sel = fsel.cpu().numpy()
-    final_fc = ffc.cpu().numpy()
-    act_h = active.cpu().numpy()
-    counter_h = int(ctr)
+    packed, state = waves_loop(cls, nodes, state, pc_d, c0, priorities,
+                               max_waves)
+    packed_h = packed.cpu().numpy()
+    final_sel = packed_h[:P].copy()
+    final_fc = packed_h[P:2 * P].copy()
+    act_h = packed_h[2 * P:3 * P].astype(bool)
+    counter_h = int(packed_h[3 * P]) & U32_MASK
     n_strag = int(act_h.sum())
     if stats is not None:
-        stats["waves"] = waves_used
+        stats["waves"] = int(packed_h[3 * P + 1])
         stats["stragglers"] = n_strag
     if n_strag:
         idx = np.nonzero(act_h)[0]

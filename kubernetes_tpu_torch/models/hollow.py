@@ -28,6 +28,7 @@ from kubernetes_tpu_torch.api.types import (
     make_node,
     make_pod,
 )
+from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
 
 Mi = 1024 * 1024
 Gi = 1024 * Mi
@@ -231,6 +232,98 @@ def mixed_affinity_pods(n: int, seed: int = 0,
     return out
 
 
+def churn_pods(n: int, seed: int = 0, namespace: str = "bench") -> List[Pod]:
+    """The churn-hardening mix: the density stream with enough
+    affinity structure that node churn exercises every invalidation path
+    instead of only capacity rows.
+
+       6%  "one replica per host" anti-affinity pods (4 apps) — their
+           topology views are what Protean delta-patching protects; a
+           node kill mid-wave is what the liveness fence protects.
+      10%  plain pods LABELED like the anti apps — anti-affinity TARGETS:
+           their churn (binds, evictions) is the patchable foreign-event
+           stream (a plain target entering/leaving a node patches one
+           forbid row; it must NOT rebuild AffinityData wholesale).
+      84%  plain density pods — the no-op patch majority.
+    """
+    t_small = make_pod("churn-t0", namespace=namespace, cpu=100,
+                       memory=256 * Mi)
+    t_big = make_pod("churn-t1", namespace=namespace, cpu=100,
+                     memory=500 * Mi)
+    anti_aff = {}
+    for a in range(4):
+        app = f"churn-iso-{a}"
+        anti_aff[app] = Affinity(pod_anti_affinity=PodAffinity(
+            required_terms=[PodAffinityTerm(
+                label_selector=LabelSelector(match_labels={"app": app}),
+                namespaces=[], topology_key=HOSTNAME_KEY)]))
+    prefix = namespace + "/"
+    out: List[Pod] = []
+    cc = copy.copy
+    for i in range(n):
+        r = i % 100
+        if r < 6:
+            app = f"churn-iso-{r % 4}"
+            p = _stamp(cc(t_small), f"churn-anti-{i}", prefix,
+                       {"app": app})
+            p.affinity = anti_aff[app]
+        elif r < 16:
+            p = _stamp(cc(t_big), f"churn-tgt-{i}", prefix,
+                       {"app": f"churn-iso-{r % 4}"})
+        else:
+            p = _stamp(cc(t_big), f"churn-web-{i}", prefix,
+                       {"app": f"web-{i % 8}"})
+        out.append(p)
+    return out
+
+
+# Borg-shaped priority bands: free/best-effort, batch,
+# prod, system — the four-tier shape PAPERS.md §Borg describes. Values
+# spread far apart so the bands are unambiguous in audits.
+PRIORITY_BANDS = {"free": 0, "batch": 100, "prod": 1000, "system": 10000}
+
+
+def priority_churn_pods(n: int, seed: int = 0,
+                        namespace: str = "bench") -> List[Pod]:
+    """The overcommit mix: the arrival stream that makes
+    displacement load-bearing. Offered against a deliberately
+    UNDERSIZED cluster, the low bands fill it first and the high bands
+    can only land by evicting — every preemption path (device victim
+    scan, atomic evict+bind, victim requeue-and-age) runs at rate.
+
+      45%  free (priority 0)      — the evictable floor; 200m/256Mi
+      30%  batch (priority 100)   — evicts free when the cluster fills
+      20%  prod (priority 1000)   — evicts batch and free
+       5%  system (priority 10000) — evicts everything below
+
+    Interleaved by index so bands arrive MIXED (a high-band pod is
+    always chasing capacity the earlier low-band stream consumed).
+    Columnar like every other profile: one template per band, shallow
+    copies, priorities part of the spec class key."""
+    templates = {}
+    for band, prio in PRIORITY_BANDS.items():
+        t = make_pod(f"prio-{band}-0", namespace=namespace, cpu=200,
+                     memory=256 * Mi)
+        t.priority = prio
+        t.priority_class = band
+        templates[band] = t
+    prefix = namespace + "/"
+    out: List[Pod] = []
+    cc = copy.copy
+    for i in range(n):
+        r = i % 100
+        if r < 45:
+            band = "free"
+        elif r < 75:
+            band = "batch"
+        elif r < 95:
+            band = "prod"
+        else:
+            band = "system"
+        p = _stamp(cc(templates[band]), f"prio-{band}-{i}", prefix,
+                   {"band": band})
+        out.append(p)
+    return out
 
 
 def hetero_gpu_pods(n: int, seed: int = 0, namespace: str = "bench") -> List[Pod]:
@@ -252,3 +345,93 @@ def hetero_gpu_pods(n: int, seed: int = 0, namespace: str = "bench") -> List[Pod
     return out
 
 
+def gang_pods(n: int, seed: int = 0, namespace: str = "bench",
+              gang_size: int = 8) -> List[Pod]:
+    """BASELINE.json config 4: coscheduled batch jobs — n pods in gangs of
+    `gang_size` (scheduling.k8s.io/group-name), all-or-nothing placement.
+    Every ~16th gang is provably infeasible (one member requests more CPU
+    than any node has) so atomic rollback is exercised, not just the happy
+    path."""
+    from kubernetes_tpu_torch.engine.gang import (
+        GANG_MIN_AVAILABLE_ANNOTATION,
+        GANG_NAME_ANNOTATION,
+    )
+    out: List[Pod] = []
+    rng = random.Random(seed)
+    n_gangs = (n + gang_size - 1) // gang_size
+    for g in range(n_gangs):
+        infeasible = g % 16 == 15
+        for m in range(min(gang_size, n - g * gang_size)):
+            cpu = 100 if not (infeasible and m == 0) else 1_000_000
+            pod = make_pod(f"gang-{g:04d}-{m:02d}", namespace=namespace,
+                           cpu=cpu, memory=128 * Mi,
+                           labels={"job": f"job-{g:04d}"})
+            pod.annotations[GANG_NAME_ANNOTATION] = f"job-{g:04d}"
+            pod.annotations[GANG_MIN_AVAILABLE_ANNOTATION] = str(
+                min(gang_size, n - g * gang_size))
+            out.append(pod)
+    rng.shuffle(out)  # members arrive interleaved, like real job storms
+    return out
+
+
+def gang_mix_pods(n: int, seed: int = 0,
+                  namespace: str = "bench") -> List[Pod]:
+    """The gang storm: ~20% of the pods arrive in 8–64-member gangs
+    (scheduling.k8s.io/group-name with a FULL-SIZE quorum annotation — the
+    strictest all-or-nothing contract); the rest is the `mixed_affinity`
+    stream (hostname anti, zone co-location groups, symmetry targets,
+    density). The blend is the point: when a gang-bearing chunk flushes
+    the pipeline (the older routing), it drags the stream's
+    affinity classes back through the CLASSIC path — per-chunk
+    AffinityData rebuilds and the full-label-axis strict scan, the exact
+    costs PROFILE_r08 measured as the PR-start collapse — so "gangs stop
+    flushing" is worth far more than the gangs themselves. Every gang pod
+    shares ONE spec class (annotations are identity, not spec —
+    state/classes.pod_class_key), so the wave encoding's class axis stays
+    flat no matter how many gangs ride a chunk; the shuffle interleaves
+    members across arrival order, so gangs complete their quorum
+    mid-drain and join whatever chunk releases them."""
+    from kubernetes_tpu_torch.engine.gang import (
+        GANG_MIN_AVAILABLE_ANNOTATION,
+        GANG_NAME_ANNOTATION,
+    )
+    rng = random.Random(seed)
+    sizes = [8, 16, 32, 64]
+    n_gang = n // 5
+    out: List[Pod] = []
+    g = 0
+    i = 0
+    while i < n_gang:
+        size = min(sizes[g % len(sizes)], n_gang - i)
+        for m in range(size):
+            p = make_pod(f"gmix-gang-{g:04d}-{m:02d}", namespace=namespace,
+                         cpu=100, memory=256 * Mi, labels={"app": "gangmix"})
+            p.annotations[GANG_NAME_ANNOTATION] = f"gmix-{g:04d}"
+            p.annotations[GANG_MIN_AVAILABLE_ANNOTATION] = str(size)
+            out.append(p)
+        i += size
+        g += 1
+    out.extend(mixed_affinity_pods(n - n_gang, seed=seed,
+                                   namespace=namespace))
+    rng.shuffle(out)  # members arrive interleaved, like real job storms
+    return out
+
+
+PROFILES = {
+    "density": density_pods,
+    "binpack": binpack_pods,
+    "affinity": affinity_pods,
+    "mixed_affinity": mixed_affinity_pods,
+    "churn": churn_pods,
+    "priority_churn": priority_churn_pods,
+    "hetero": hetero_gpu_pods,
+    "gang": gang_pods,
+    "gang_mix": gang_mix_pods,
+}
+
+
+def load_cluster(api: ApiServerLite, nodes: List[Node], pods: List[Pod]) -> None:
+    for node in nodes:
+        api.create("Node", node)
+    for pod in pods:
+        api.create("Pod", pod)

@@ -496,17 +496,45 @@ def precompute_static(aff: Arrays, labels: torch.Tensor) -> Arrays:
 def _occupancy(m: torch.Tensor, keymask: torch.Tensor,
                commdom: torch.Tensor) -> torch.Tensor:
     """[T, C] match rows x committed domain occupancy [C, L], masked to
-    each term's topology key -> int32 [T, L]."""
+    each term's topology key -> int32 [T, L]. int_matmul is exact here:
+    m is 0/1, so each sum is at most the pods committed in one domain,
+    which is at most the pods the cluster holds (nodes x allowed pods:
+    550,000 at 5,000 x 110) < 2^24."""
     return int_matmul(m.to(I32), commdom.T) * keymask.to(I32)
+
+
+def domain_hits(rows: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """int32 domain rows [M, L] x the node-domain incidence labels [N, L]
+    -> int32 [M, N]: one incidence product (ops/kernels.incidence_matmul,
+    the CUDA kernel on the card), exact for any int32 rows — the rows here
+    carry occupancy counts and priority weights whose sums float32 would
+    not hold exactly, so they never go through int_matmul."""
+    return kernels.incidence_matmul(rows.to(I32).contiguous(),
+                                    labels.to(torch.int8).contiguous())
 
 
 def step_fits(aff: Arrays, pre: Arrays, c: int, commdom: torch.Tensor,
               comm_cnt: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """InterPodAffinity predicate for pod class c against the occupancy
-    carry. [N] bool. Mirrors inter_pod_affinity_fits of the oracle."""
+    carry. [N] bool. Mirrors inter_pod_affinity_fits of the oracle. The
+    three domain products (allow occupancy, own anti, symmetry) are one
+    stacked incidence product."""
     active = aff["aff_active"][c]                              # [S]
+    s_dim = active.shape[0]
     occ = _occupancy(aff["m_aff"][c], aff["aff_keymask"][c], commdom)
-    dyn_hit = int_matmul(occ, labels) > 0                      # [S,N]
+    # own anti (dynamic part; static folded into forbid_static)
+    occa = _occupancy(aff["m_anti"][c], aff["anti_keymask"][c], commdom)
+    # symmetry vs committed pods' required anti terms matching c:
+    # sym_occ[l] = sum_{d,a} m_anti[d,a,c] * anti_keymask[d,a,l] * commdom[d,l]
+    m_in = aff["m_anti"][:, :, c].to(I32)                      # [C,A]
+    sym_occ = (m_in[:, :, None] * aff["anti_keymask"].to(I32)
+               * commdom[:, None, :]).sum(dim=(0, 1), dtype=I32)  # [L]
+    a_dim = occa.shape[0]
+    hits = domain_hits(torch.cat([occ, occa, sym_occ[None]]), labels) > 0
+    dyn_hit = hits[:s_dim]                                     # [S,N]
+    anti_dyn = hits[s_dim:s_dim + a_dim] \
+        & aff["anti_active"][c][:, None]                       # [A,N]
+    sym_hit = hits[s_dim + a_dim]                              # [N]
     dyn_total = (aff["m_aff"][c].to(I32) * comm_cnt[None, :]).sum(
         dim=1, dtype=I32)                                      # [S]
     static_hit = pre["allow_hit"][c]
@@ -514,16 +542,6 @@ def step_fits(aff: Arrays, pre: Arrays, c: int, commdom: torch.Tensor,
     bootstrap = aff["aff_self"][c] & ~has_static & (dyn_total == 0)
     ok = ((~active[:, None]) | static_hit | dyn_hit
           | bootstrap[:, None]).all(dim=0)                     # [N]
-    # own anti (dynamic part; static folded into forbid_static)
-    occa = _occupancy(aff["m_anti"][c], aff["anti_keymask"][c], commdom)
-    anti_dyn = (int_matmul(occa, labels) > 0) \
-        & aff["anti_active"][c][:, None]
-    # symmetry vs committed pods' required anti terms matching c:
-    # sym_occ[l] = sum_{d,a} m_anti[d,a,c] * anti_keymask[d,a,l] * commdom[d,l]
-    m_in = aff["m_anti"][:, :, c].to(I32)                      # [C,A]
-    sym_occ = (m_in[:, :, None] * aff["anti_keymask"].to(I32)
-               * commdom[:, None, :]).sum(dim=(0, 1), dtype=I32)  # [L]
-    sym_hit = int_matmul(sym_occ, labels) > 0                  # [N]
     forbidden = pre["forbid_hit"][c] | anti_dyn.any(dim=0) | sym_hit
     return ok & ~forbidden & ~aff["fail_all"][c]
 
@@ -532,17 +550,81 @@ def step_prio_counts(aff: Arrays, pre: Arrays, c: int,
                      commdom: torch.Tensor, labels: torch.Tensor
                      ) -> torch.Tensor:
     """InterPodAffinity weighted counts for class c, [N] int32 (before the
-    0..10 normalization)."""
+    0..10 normalization). Own preferred terms and the committed classes'
+    outgoing terms are one stacked incidence product."""
     counts = pre["prio_counts"][c]
     occp = _occupancy(aff["mp"][c], aff["p_keymask"][c], commdom)
-    per_t = int_matmul(occp, labels)                           # [T,N]
-    counts = counts + (aff["p_w"][c][:, None] * per_t).sum(dim=0, dtype=I32)
     # committed classes' outgoing terms scoring c:
     # occq[l] = sum_{d,u} q_w[d,u] * mq[d,u,c] * q_keymask[d,u,l] * commdom[d,l]
     wq = aff["q_w"] * aff["mq"][:, :, c].to(I32)               # [C,U]
     occq = (wq[:, :, None] * aff["q_keymask"].to(I32)
             * commdom[:, None, :]).sum(dim=(0, 1), dtype=I32)  # [L]
-    return counts + int_matmul(occq, labels)
+    hits = domain_hits(torch.cat([occp, occq[None]]), labels)
+    per_t = hits[:-1]                                          # [T,N]
+    counts = counts + (aff["p_w"][c][:, None] * per_t).sum(dim=0, dtype=I32)
+    return counts + hits[-1]
+
+
+def step_fits_all(aff: Arrays, pre: Arrays, commdom: torch.Tensor,
+                  comm_cnt: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Class-vectorized ``step_fits``: the required (anti-)affinity mask
+    for EVERY class against one occupancy carry, [C, N] bool — row c is
+    bit-identical to ``step_fits(aff, pre, c, ...)``. The conflict-round
+    tail evaluates all of a round's classes in one shot; the three domain
+    products are one stacked incidence product [C*S + C*A + C, L]."""
+    c_dim, s_dim, l_dim = aff["aff_keymask"].shape
+    a_dim = aff["anti_keymask"].shape[1]
+    occ = _occupancy(aff["m_aff"].reshape(c_dim * s_dim, c_dim),
+                     aff["aff_keymask"].reshape(c_dim * s_dim, l_dim),
+                     commdom)                                  # [C*S, L]
+    occa = _occupancy(aff["m_anti"].reshape(c_dim * a_dim, c_dim),
+                      aff["anti_keymask"].reshape(c_dim * a_dim, l_dim),
+                      commdom)                                 # [C*A, L]
+    # sym_occ[c, l] = sum_{d,a} m_anti[d,a,c] * anti_keymask[d,a,l]
+    #               * commdom[d,l] — the same sums as ``_occupancy`` (at
+    # most the pods the cluster holds, < 2^24), so int_matmul is exact
+    kc = (aff["anti_keymask"].to(I32) * commdom[:, None, :]).reshape(
+        c_dim * a_dim, l_dim)
+    sym_occ = int_matmul(aff["m_anti"].reshape(c_dim * a_dim, c_dim)
+                         .to(I32).T, kc.T)                     # [C, L]
+    hits = domain_hits(torch.cat([occ, occa, sym_occ]), labels) > 0
+    n_dim = labels.shape[0]
+    cs, ca = c_dim * s_dim, c_dim * a_dim
+    dyn_hit = hits[:cs].reshape(c_dim, s_dim, n_dim)
+    anti_dyn = hits[cs:cs + ca].reshape(c_dim, a_dim, n_dim) \
+        & aff["anti_active"][:, :, None]
+    sym_hit = hits[cs + ca:]                                   # [C, N]
+    dyn_total = (aff["m_aff"].to(I32) * comm_cnt[None, None, :]).sum(
+        dim=2, dtype=I32)                                      # [C, S]
+    bootstrap = (aff["aff_self"] & ~aff["aff_has_static"]
+                 & (dyn_total == 0))                           # [C, S]
+    ok = ((~aff["aff_active"][:, :, None]) | pre["allow_hit"] | dyn_hit
+          | bootstrap[:, :, None]).all(dim=1)                  # [C, N]
+    forbidden = pre["forbid_hit"] | anti_dyn.any(dim=1) | sym_hit
+    return ok & ~forbidden & ~aff["fail_all"][:, None]
+
+
+def step_prio_counts_all(aff: Arrays, pre: Arrays, commdom: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Class-vectorized ``step_prio_counts``: InterPodAffinity weighted
+    counts for every class, [C, N] int32, row-identical to the per-class
+    form. One stacked incidence product [C*T + C, L]."""
+    c_dim, t_dim, l_dim = aff["p_keymask"].shape
+    occp = _occupancy(aff["mp"].reshape(c_dim * t_dim, c_dim),
+                      aff["p_keymask"].reshape(c_dim * t_dim, l_dim),
+                      commdom)                                 # [C*T, L]
+    # occq[r, l] = sum_{d,u} q_w[d,u] * mq[d,u,r] * q_keymask[d,u,l]
+    #            * commdom[d,l] — weighted sums, exact in int32 (no float)
+    wq = aff["q_w"][:, :, None] * aff["mq"].to(I32)            # [D,U,R]
+    kc = aff["q_keymask"].to(I32) * commdom[:, None, :]        # [D,U,L]
+    occq = (wq[:, :, :, None] * kc[:, :, None, :]).sum(dim=(0, 1),
+                                                       dtype=I32)  # [R,L]
+    hits = domain_hits(torch.cat([occp, occq]), labels)
+    per_t = hits[:c_dim * t_dim].reshape(c_dim, t_dim, -1)     # [C,T,N]
+    counts = pre["prio_counts"] \
+        + (aff["p_w"][:, :, None] * per_t).sum(dim=1, dtype=I32)
+    return counts + hits[c_dim * t_dim:]
 
 
 def interpod_score(counts: torch.Tensor, fits: torch.Tensor) -> torch.Tensor:

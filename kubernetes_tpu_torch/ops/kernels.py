@@ -67,16 +67,20 @@ _KERNELS = {
 }
 
 # launches of each kernel since the last reset_launch_counts(); only the
-# CUDA branch of a wrapper counts, right where it launches
+# CUDA branch of a wrapper counts, right where it launches, under a lock:
+# the pipelined drain launches from its wave worker thread and from the
+# harvesting thread at once
 LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNELS}
+_count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -178,7 +182,8 @@ def _launch(name: str, dev: int, *args) -> None:
                            f"or arguments")
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {code}")
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 _sms: Dict[int, int] = {}

@@ -21,10 +21,13 @@ from kubernetes_tpu.state.snapshot import ClusterSnapshot as JSnapshot
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.convert import arrays_from_numpy
 from kubernetes_tpu_torch.engine import waves as twaves
+from kubernetes_tpu_torch.engine import scheduler as tsched
+from kubernetes_tpu_torch.engine import scheduler_engine as tse
 from kubernetes_tpu_torch.engine.batch import node_state as t_node_state
 from kubernetes_tpu_torch.engine.scheduler_engine import \
     SchedulingEngine as TEngine
 from kubernetes_tpu_torch.models import hollow as th
+from kubernetes_tpu_torch.server import apiserver_lite as tapi
 from kubernetes_tpu_torch.state.cache import SchedulerCache as TCache
 
 KERNEL_PRIORITIES = (("LeastRequestedPriority", 1),
@@ -153,9 +156,12 @@ def test_batches_for_later_slices_raise():
 
 
 
-def test_node_uploads_are_copies():
+def test_node_uploads_are_copies(monkeypatch):
     """The snapshot mutates its arrays in place between batches; a tensor
-    of the engine must never alias one."""
+    of the engine must never alias one. Likewise the pipelined drain's
+    committed-occupancy upload: the harvest folds commits into the
+    encoding's committed_nodes in place while the next wave's job may
+    still read its tensor."""
     eng = TEngine(_cache(th, TCache, 8), device="cpu")
     eng.schedule(th.density_pods(4), mode="wave")
     nodes = eng._device_nodes
@@ -164,3 +170,31 @@ def test_node_uploads_are_copies():
     assert not any(np.shares_memory(t.numpy(), getattr(eng.snapshot, k))
                    for k, t in nodes.items() if k != "port_bitmap")
     assert torch.equal(nodes["requested"], before)
+
+    seen = []
+    real = tse._wave_job
+
+    def spy(*args):
+        seen.append(args[9])          # the committed-occupancy tensor
+        return real(*args)
+
+    monkeypatch.setattr(tse, "_wave_job", spy)
+    api = tapi.ApiServerLite()
+    th.load_cluster(api, th.hollow_nodes(32),
+                    th.PROFILES["mixed_affinity"](300))
+    s = tsched.Scheduler(api, record_events=False, device="cpu")
+    s.start()
+    pipe = s.pipeline(chunk=64)
+    pipe.step()
+    enc = pipe.inflight.enc
+    host, dev = enc.committed_nodes, seen[-1]
+    assert not np.shares_memory(dev.numpy(), host)
+    before = dev.clone()
+    host += 5
+    assert torch.equal(dev, before)
+    host -= 5
+    pipe.step()                       # harvests the first wave: the fold
+    pipe.close()
+    s.engine.close()
+    assert int(enc.committed_nodes.sum()) > 0
+    assert len(seen) == 2 and seen[1] is not seen[0]

@@ -11,10 +11,12 @@ import sys
 import pytest
 
 import kubernetes_tpu_torch
+from kubernetes_tpu_torch.engine.scheduler import Scheduler
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     SchedulingEngine,
     evaluate_pod,
 )
+from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
 
@@ -66,3 +68,5 @@ def test_entry_points_default_to_the_card():
         SchedulingEngine(SchedulerCache())
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_pod(None, {}, ClusterSnapshot(), ())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scheduler(ApiServerLite())
