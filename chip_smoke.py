@@ -51,10 +51,26 @@ phase fails. Phases:
      its plain version; then the mixed_affinity drain at 512 x 3,000 runs
      on the card with overlap on and off and on the CPU: the placements
      agree;
-  7. print the per-kernel summary line, then the result line.
+  7. the scheduler-extender service, as bench.py _build_extender starts
+     it: TPUExtenderBackend (binding into an ApiServerLite) behind
+     ExtenderHTTPServer, 5,000 hollow nodes and 3,000 bound
+     mixed_affinity pods synced over /cache/nodes and /cache/pods. The
+     phase-5 probes and two host-oracle probes go over HTTP as /filter +
+     /prioritize to the card's sidecar and to a CPU sidecar given the
+     same syncs (equal response bodies), then one coalesced batch of ten
+     classes through _eval_many on both (equal rows); the counters show
+     the fused [C, N] batch, /prioritize riding /filter's memo and the
+     oracle route. Then the HTTP verdict round (bench.py
+     measure_extender_latency) and a fleet of 8 concurrent compat
+     scheduleOne frontends binding 1,000 density pods with SnapshotGen and
+     IdempotencyKey, 409s retried, any other error failing; the store is
+     audited. Each kernel's operands at every launch shape of the phase
+     are held against its plain version, and the batch's stacked
+     incidence product is timed;
+  8. print the per-kernel summary line, then the result line.
 
-Launch counts are zeroed just before each main-path run (phases 4, 5 and
-6) and read just after it; launches made by the comparisons do not
+Launch counts are zeroed just before each main-path run (phases 4, 5, 6
+and 7) and read just after it; launches made by the comparisons do not
 count.
 """
 
@@ -1042,6 +1058,401 @@ def pipelined_drains(mods, card):
     return total, err
 
 
+# ---------------------------------------------------------------- phase 7
+
+EXT_FLEET_PODS = 1000
+EXT_FRONTENDS = 8
+EXT_LATENCY_ROUNDS = 20
+EXT_COUNTERS = ("extender.fused_eval", "extender.fused_eval_batch",
+                "extender.batch_classes", "extender.result_hit",
+                "extender.oracle_eval", "extender.refresh_full",
+                "extender.refresh_hint", "extender.affinity_data_build")
+
+
+class Wire:
+    """One keep-alive HTTP connection to a sidecar; each call returns
+    (status, raw body)."""
+
+    def __init__(self, port: int):
+        import http.client
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=120)
+
+    def post(self, path: str, body) -> tuple:
+        raw = body if isinstance(body, (str, bytes)) \
+            else json.dumps(body, separators=(",", ":"))
+        self.conn.request("POST", "/scheduler/" + path, raw,
+                          {"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        return resp.status, resp.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def ext_counters() -> dict:
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    snap = COUNTERS.snapshot()
+    return {k: snap.get(k, (0, 0.0))[0] for k in EXT_COUNTERS}
+
+
+def ext_oracle_probes(hollow, types):
+    """Two pods for the exact host oracle: nine host ports (the encoding
+    holds eight), and five ORed node-selector terms (it holds four) over
+    zone values already in the label vocab (the zone-affinity pods intern
+    them), so the pod reaches the encoding and not vocab isolation."""
+    zones = hollow.ZONES
+    terms = [types.NodeSelectorTerm([types.SelectorRequirement(
+        hollow.ZONE_KEY, types.SelectorOperator.IN, [zones[i % len(zones)]])])
+        for i in range(5)]
+    return [types.make_pod("oracle-ports", namespace="bench", cpu=100,
+                           memory=256 << 20, ports=list(range(7000, 7009))),
+            types.make_pod("oracle-terms", namespace="bench", cpu=100,
+                           memory=256 << 20, affinity=types.Affinity(
+                               node_affinity=types.NodeAffinity(
+                                   required_terms=terms)))]
+
+
+def ext_batch_pods(hollow, types):
+    """Ten distinct classes for one coalesced batch: the mixed-affinity
+    shapes (hostname anti-affinity, zone affinity, anti-affinity targets,
+    plain) and plain pods, each at a CPU request no earlier probe used,
+    so none is a memo hit."""
+    src = hollow.mixed_affinity_pods(100, seed=31)
+    pods = [types.make_pod(f"batch-{k}", namespace="bench", cpu=111 + k,
+                           memory=256 << 20, labels=dict(src[i].labels),
+                           affinity=src[i].affinity)
+            for k, i in enumerate((0, 1, 2, 15, 16, 17, 18, 22))]
+    pods += [types.make_pod(f"batch-plain-{k}", namespace="bench",
+                            cpu=131 + k, memory=256 << 20) for k in range(2)]
+    return pods
+
+
+def batch_rows(backend, n_classes):
+    """M of the coalesced batch's stacked static incidence product,
+    C_pad * (S + 2), read off its encoded entry in the backend's LRU."""
+    for enc in backend.eval_cache._lru.values():
+        if enc.aff is not None and enc.batch.num_classes == n_classes:
+            c, s, _ = enc.aff["aff_allow"].shape
+            return c * (s + 2)
+    fail(f"extender: no encoded entry of {n_classes} classes with live "
+         f"affinity in the backend's LRU")
+
+
+def sidecar(ext, backend):
+    srv = ext.ExtenderHTTPServer(backend, prefix="/scheduler")
+    srv.start()
+    return srv
+
+
+def serial_probes(wire, serde, probes):
+    """/filter then /prioritize for every probe over the whole cluster
+    (NodeNames null); the (status, body) pairs in order."""
+    out = []
+    for p in probes:
+        enc = serde.encode_pod(p)
+        for verb in ("filter", "prioritize"):
+            out.append(wire.post(verb, {"Pod": enc, "NodeNames": None,
+                                        "Nodes": None}))
+    return out
+
+
+def extender_latency(port, serde, types, rounds=EXT_LATENCY_ROUNDS):
+    """One /filter + /prioritize round over real HTTP, as bench.py
+    measure_extender_latency defines it: a fresh connection per verb,
+    NodeNames null, the first three rounds not counted. Returns the
+    sorted round times (s)."""
+    import http.client
+    lat = []
+    for i in range(rounds + 3):
+        pod = types.make_pod(f"ext-{i}", cpu=100, memory=256 << 20)
+        body = json.dumps({"Pod": serde.encode_pod(pod), "NodeNames": None,
+                           "Nodes": None})
+        t0 = time.perf_counter()
+        for verb in ("filter", "prioritize"):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", f"/scheduler/{verb}", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            conn.close()
+            if resp.status != 200:
+                fail(f"extender latency: HTTP {resp.status} on /{verb}")
+        if i >= 3:
+            lat.append(time.perf_counter() - t0)
+    return sorted(lat)
+
+
+def fleet(port, serde, pods, node_names, frontends=EXT_FRONTENDS):
+    """Concurrent compat scheduleOne frontends over real HTTP, no sleeps
+    (bench.py measure_compat_scheduleone): each frontend runs /filter with
+    the whole candidate list, /prioritize over the survivors, picks the top
+    score and /binds with the verdict's SnapshotGen, an IdempotencyKey and
+    the pod's spec. A 409 is retried with a fresh verdict; any other
+    non-200 fails. Returns (wall s, the tally of bound, unschedulable and
+    409s, the sorted times of the rounds that bound)."""
+    import threading
+    names_json = json.dumps(node_names, separators=(",", ":"))
+    per = (len(pods) + frontends - 1) // frontends
+    lock = threading.Lock()
+    errors, rounds = [], []
+    tally = {"bound": 0, "unschedulable": 0, "conflicts": 0}
+
+    def drive(d):
+        wire = Wire(port)
+        try:
+            for pod in pods[d * per:(d + 1) * per]:
+                enc = json.dumps(serde.encode_pod(pod),
+                                 separators=(",", ":"))
+                for attempt in range(50):
+                    t0 = time.perf_counter()
+                    status, body = wire.post(
+                        "filter", '{"Pod":' + enc + ',"NodeNames":'
+                        + names_json + ',"Nodes":null}')
+                    if status != 200:
+                        raise RuntimeError(f"/filter HTTP {status}: "
+                                           f"{body[:200]!r}")
+                    verdict = json.loads(body)
+                    passed = verdict["NodeNames"] or []
+                    if not passed:
+                        with lock:
+                            tally["unschedulable"] += 1
+                        break
+                    passed_json = names_json \
+                        if len(passed) == len(node_names) \
+                        else json.dumps(passed, separators=(",", ":"))
+                    status, body = wire.post(
+                        "prioritize", '{"Pod":' + enc + ',"NodeNames":'
+                        + passed_json + ',"Nodes":null}')
+                    if status != 200:
+                        raise RuntimeError(f"/prioritize HTTP {status}: "
+                                           f"{body[:200]!r}")
+                    host = max(json.loads(body),
+                               key=lambda e: e["Score"])["Host"]
+                    status, body = wire.post("bind", {
+                        "PodName": pod.name, "PodNamespace": pod.namespace,
+                        "PodUID": pod.uid, "Node": host,
+                        "SnapshotGen": verdict["SnapshotGen"],
+                        "IdempotencyKey": f"{pod.key()}:{attempt}",
+                        "Pod": json.loads(enc)})
+                    dt = time.perf_counter() - t0
+                    out = json.loads(body)
+                    if status == 409:
+                        with lock:
+                            tally["conflicts"] += 1
+                        continue
+                    if status != 200 or out.get("Error"):
+                        raise RuntimeError(f"/bind HTTP {status}: {out}")
+                    with lock:
+                        tally["bound"] += 1
+                        rounds.append(dt)
+                    break
+                else:
+                    raise RuntimeError(f"{pod.key()}: 50 fence conflicts")
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            with lock:
+                errors.append(f"frontend {d}: {type(e).__name__}: {e}")
+        finally:
+            wire.close()
+
+    threads = [threading.Thread(target=drive, args=(d,))
+               for d in range(frontends)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("extender fleet: a frontend did not finish in 600 s")
+    if errors:
+        fail(f"extender fleet: {errors[:3]}")
+    return wall, tally, sorted(rounds)
+
+
+def extender_service(mods, card, timing):
+    """Phase 7: the scheduler-extender sidecar at 5,000 hollow nodes, on
+    the card and, for the serial probes and one coalesced batch, on the
+    CPU. Returns (launches, max abs err per kernel on this path)."""
+    import numpy as np
+    import torch
+    (hollow, types, kernels, serde, ext, api_mod, churn, COUNTERS) = mods
+    t_phase = time.perf_counter()
+    nodes = hollow.hollow_nodes(N_NODES)
+    for i, n in enumerate(nodes):
+        n.labels["zone"] = f"z{i % 16}"
+    bound = hollow.mixed_affinity_pods(3000, seed=11)
+    for i, p in enumerate(bound):
+        p.node_name = nodes[i % N_NODES].name
+    api = api_mod.ApiServerLite(max_log=200_000)
+    for n in nodes:
+        api.create("Node", n)
+    for p in bound:
+        api.create("Pod", p)
+    fleet_pods = hollow.density_pods(EXT_FLEET_PODS, seed=41)
+    for p in fleet_pods:
+        api.create("Pod", p)
+    nodes_body = json.dumps({"items": [serde.encode_node(n) for n in nodes]},
+                            separators=(",", ":"))
+    pods_body = json.dumps({"items": [serde.encode_pod(p) for p in bound]},
+                           separators=(",", ":"))
+    backends = {
+        "card": ext.TPUExtenderBackend(
+            binder=churn.extender_store_binder(api)),
+        "CPU": ext.TPUExtenderBackend(device="cpu")}
+    servers = {tag: sidecar(ext, b) for tag, b in backends.items()}
+    try:
+        for tag, b in backends.items():
+            wire = Wire(servers[tag].port)
+            for path, body in (("cache/nodes", nodes_body),
+                               ("cache/pods", pods_body)):
+                status, out = wire.post(path, body)
+                if status != 200:
+                    fail(f"extender {tag}: {path} HTTP {status}: {out!r}")
+            wire.close()
+            # warm as bench.py _build_extender does
+            b.filter(types.make_pod("warm", cpu=100, memory=256 << 20),
+                     None, None)
+            b.prioritize(types.make_pod("warm2", cpu=100, memory=256 << 20),
+                         None, None)
+        log(f"extender: {N_NODES} nodes (zone labels z0..z15) and "
+            f"{len(bound)} bound mixed_affinity pods synced over "
+            f"/cache/nodes and /cache/pods into the card and CPU sidecars "
+            f"in {time.perf_counter() - t_phase:.1f} s")
+        probes = (hollow.mixed_affinity_pods(40, seed=12)[::2]
+                  + hollow.affinity_pods(8, seed=13)
+                  + ext_oracle_probes(hollow, types))
+        batch_pods = ext_batch_pods(hollow, types)
+        spy = OperandSpy(kernels)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        COUNTERS.reset()
+        # card, serially: the probes over HTTP, then one coalesced batch
+        wire = Wire(servers["card"].port)
+        t0 = time.perf_counter()
+        with spy:
+            card_bodies = serial_probes(wire, serde, probes)
+            t_serial = time.perf_counter() - t0
+            card_batch = backends["card"]._eval_many(batch_pods)
+        wire.close()
+        stacked_m = batch_rows(backends["card"], len(batch_pods))
+        counters = ext_counters()
+        cpu_t0 = time.perf_counter()
+        wire = Wire(servers["CPU"].port)
+        cpu_bodies = serial_probes(wire, serde, probes)
+        wire.close()
+        cpu_batch = backends["CPU"]._eval_many(batch_pods)
+        cpu_s = time.perf_counter() - cpu_t0
+        bad = [i for i, (a, c) in enumerate(zip(card_bodies, cpu_bodies))
+               if a != c]
+        if bad or any(s != 200 for s, _ in card_bodies):
+            i = bad[0] if bad else 0
+            fail(f"extender: card != CPU on {len(bad)} of "
+                 f"{len(card_bodies)} responses (first: {probes[i // 2].name}"
+                 f" {card_bodies[i][1][:160]!r} vs {cpu_bodies[i][1][:160]!r})")
+        for p, a, c in zip(batch_pods, card_batch, cpu_batch):
+            if not (np.array_equal(a.m, c.m) and np.array_equal(a.s, c.s)
+                    and a.s.dtype == c.s.dtype):
+                fail(f"extender coalesced batch: card != CPU for {p.name}")
+        n_pass = [len(json.loads(b)["NodeNames"])
+                  for b in (body for _s, body in card_bodies[::2])]
+        log(f"extender serial probes: {len(probes)} pods x /filter + "
+            f"/prioritize over HTTP, card == CPU on all "
+            f"{len(card_bodies)} response bodies (nodes passed per probe "
+            f"{min(n_pass)}..{max(n_pass)}); card {t_serial:.3f} s, CPU "
+            f"(with the batch) {cpu_s:.3f} s; coalesced batch of "
+            f"{len(batch_pods)} classes through _eval_many: card == CPU "
+            f"(fits and scores) [{card}]")
+        log("extender counters (card, probes + batch): "
+            + json.dumps(counters))
+        if counters["extender.fused_eval_batch"] < 1:
+            fail("extender: the coalesced batch never ran _fused_eval_batch")
+        if counters["extender.batch_classes"] < 8:
+            fail(f"extender: the batch held "
+                 f"{counters['extender.batch_classes']} classes, not >= 8")
+        if counters["extender.result_hit"] < 1:
+            fail("extender: /prioritize never rode /filter's evaluation")
+        if counters["extender.oracle_eval"] < 2:
+            fail("extender: the host-oracle probes never took the oracle")
+        # the HTTP verdict round, then the fleet (card only)
+        lat = extender_latency(servers["card"].port, serde, types)
+        p50 = 1e3 * lat[len(lat) // 2]
+        p99 = 1e3 * lat[min(int(len(lat) * 0.99), len(lat) - 1)]
+        log(f"extender verdict round (/filter + /prioritize over HTTP, "
+            f"bench.py measure_extender_latency): p50 {p50:.2f} ms, p99 "
+            f"{p99:.2f} ms over {len(lat)} rounds [{card}]")
+        COUNTERS.reset()
+        svc0 = backends["card"]._counters_snapshot()
+        with spy:
+            wall, tally, rounds = fleet(
+                servers["card"].port, serde, fleet_pods,
+                list(backends["card"].engine.snapshot.node_names))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        fleet_counters = ext_counters()
+        svc = {k: v - svc0.get(k, 0)
+               for k, v in backends["card"]._counters_snapshot().items()}
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        for b in backends.values():
+            b.engine.close()
+    # the store after the fleet: every pod bound or fitting no node, no
+    # node over CPU, memory or pods, no pod bound twice
+    n_bound, n_unbound = audit_store(api, "extender fleet",
+                                     len(bound) + len(fleet_pods))
+    if n_unbound or tally["bound"] != len(fleet_pods):
+        fail(f"extender fleet: {n_unbound} pods unbound, "
+             f"{tally['bound']} of {len(fleet_pods)} bound by the frontends")
+    reasons = {k[len("bind_conflict_reason_"):]: v for k, v in svc.items()
+               if k.startswith("bind_conflict_reason_")}
+    if sum(reasons.values()) != tally["conflicts"] \
+            or svc.get("bind_conflicts", 0) != tally["conflicts"]:
+        fail(f"extender fleet: 409s seen {tally['conflicts']}, fence "
+             f"conflicts {svc.get('bind_conflicts', 0)} by reason {reasons}")
+    batches = fleet_counters["extender.fused_eval_batch"]
+    n_coal = svc.get("coalesce_batches", 0)
+    n_req = svc.get("coalesce_requests", 0)
+    p50_round = 1e3 * rounds[len(rounds) // 2]
+    p99_round = 1e3 * rounds[min(int(len(rounds) * 0.99), len(rounds) - 1)]
+    log(f"extender fleet: {EXT_FRONTENDS} compat scheduleOne frontends over "
+        f"HTTP, {len(fleet_pods)} density pods bound in {wall:.3f} s = "
+        f"{len(fleet_pods) / wall:.1f} scheduleOnes/s; scheduleOne round "
+        f"p50 {p50_round:.2f} ms p99 {p99_round:.2f} ms; coalesced batches "
+        f"{n_coal} for {n_req} requests ({n_req / max(n_coal, 1):.2f} a "
+        f"batch), of which {batches} held several classes (fused [C, N], "
+        f"{fleet_counters['extender.batch_classes']} classes) and the rest "
+        f"at most one (single-pod evaluations "
+        f"{fleet_counters['extender.fused_eval']}, memo hits "
+        f"{fleet_counters['extender.result_hit']}); fence conflicts "
+        f"{tally['conflicts']} by reason {reasons}, fence skipped "
+        f"{svc.get('bind_fence_skipped', 0)}; store audit clean ({n_bound} "
+        f"bound, 0 duplicate binds) [{card}]")
+    log("extender fleet counters: " + json.dumps(
+        {**fleet_counters, **{k: v for k, v in sorted(svc.items())}}))
+    cap_shapes, inc_shapes = spy.shapes()
+    log(f"extender launches {launches}, shapes (capacity (C, N, R)) "
+        f"{cap_shapes}, (incidence (M, N, L)) {inc_shapes}")
+    for k in ("capacity_fit", "incidence_matmul"):
+        if launches[k] == 0:
+            fail(f"extender: no {k} launch on this path")
+    err = spy.check("extender")
+    # the batch's stacked static product, A [C_pad * (S + 2), L]
+    stacked = [k for k in spy.inc if k[0][0] == stacked_m]
+    if not stacked:
+        fail(f"extender: no incidence launch at the batch's stacked "
+             f"M = {stacked_m} (shapes {inc_shapes})")
+    stacked = stacked[0]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                        device=torch.device("cuda"))
+    a, b = spy.inc[stacked]
+    timing["incidence_matmul"]["extender_batch"] = time_incidence(
+        kernels, "extender batch (stacked)", a, b, flush)
+    del flush
+    log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1050,15 +1461,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from kubernetes_tpu_torch.api import types
+        from kubernetes_tpu_torch.api import serde, types
         from kubernetes_tpu_torch.engine.scheduler import Scheduler
         from kubernetes_tpu_torch.engine.scheduler_engine import (
             SchedulingEngine, evaluate_pod)
         from kubernetes_tpu_torch.models import hollow
         from kubernetes_tpu_torch.ops import affinity, kernels
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
-        from kubernetes_tpu_torch.server import apiserver_lite
+        from kubernetes_tpu_torch.server import apiserver_lite, extender
         from kubernetes_tpu_torch.state.classes import ClassBatch
+        from kubernetes_tpu_torch.testing import churn
         from kubernetes_tpu_torch.utils.trace import COUNTERS
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
@@ -1115,7 +1527,14 @@ def main() -> int:
     for k, v in err_pipe.items():
         max_err[k] = max(max_err[k], v)
 
-    # 7. summary
+    # 7. the scheduler-extender service
+    launches_ext, err_ext = extender_service(
+        (hollow, types, kernels, serde, extender, apiserver_lite, churn,
+         COUNTERS), card, timing)
+    for k, v in err_ext.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 8. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -1126,15 +1545,19 @@ def main() -> int:
             "source": f"kubernetes_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (launches_drain[name] + launches_eval[name]
-                         + launches_pipe[name]),
+                         + launches_pipe[name] + launches_ext[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "cold_ms": t.get("cold_ms"),
             **{k: v for k, v in t.items() if k.startswith("wave_")
-               and "profiler" not in k}})
+               and "profiler" not in k},
+            **{f"extender_batch_{k}": v
+               for k, v in t.get("extender_batch", {}).items()
+               if k in ("ms", "device_ms", "cold_ms", "plain_ms",
+                        "library_ms", "bound_ms", "shape")}})
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
-        f"pipelined drains {launches_pipe}")
+        f"pipelined drains {launches_pipe}, extender {launches_ext}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -59,6 +59,7 @@ from kubernetes_tpu_torch.engine import gang as gangmod
 from kubernetes_tpu_torch.engine.queue import SchedulingQueue
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     GANG_SLICE,
+    POLICY_SLICE,
     PlacementResult,
     SchedulingEngine,
 )
@@ -82,8 +83,6 @@ from kubernetes_tpu_torch.utils.trace import SCHEDULE_TRACE_THRESHOLD_S, Trace
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 PREEMPT_SLICE = ("PodPriority preemption (engine/preemption.py, "
                  "engine/preempt_wave.py), ROADMAP §1.4 of the port")
-POLICY_SLICE = ("Policy algorithms (ops/policy_algos), ROADMAP §1.2 of the "
-                "port")
 MESH_SLICE = ("mesh sharding across several cards (parallel/mesh.py, "
               "_waves_loop_spmd), ROADMAP §1.5 of the port")
 

@@ -3,9 +3,14 @@
 PyTorch port of kubernetes_tpu/engine/scheduler_engine.py, on one device
 (the card unless the caller names another):
 
+- the extender verdict: ``evaluate_pod`` (one pod, [1, N]) with the warm
+  lane of an ``EvalCache`` (result memo, encoded-class LRU, vocab-growth
+  isolation) and ``evaluate_pods_batch`` (a coalesced batch, one fused
+  [C, N] evaluation for its unique classes); pods whose features the
+  device encoding over-approximates take the exact object-level oracle
+  (ops/oracle.py);
 - the synchronous path, ``SchedulingEngine.schedule`` (modes ``wave`` and
-  ``strict``), and the extender verdict ``evaluate_pod`` on its uncached
-  path;
+  ``strict``);
 - the pipelined drain, ``dispatch_waves`` / ``harvest_waves``: dispatch
   encodes a chunk (vocab_gen-keyed encoding reuse), hands the wave loop to
   the engine's worker thread WITHOUT waiting for it and returns a
@@ -27,10 +32,11 @@ them in place while a later wave may still run.
 
 What later slices of the port bring raises NotImplementedError naming the
 slice, so nothing is ever scheduled silently by a path that is not there:
-classes routed to the exact host oracle (needs_host_check, affinity slot
-overflow; ROADMAP §1.2), gangs on the wave path (§1.4), and live
-inter-pod affinity on the synchronous ``schedule`` path (§1.2, the
-reference's ``_run_wave``).
+the Policy algorithms (an active ``policy_algos``) and classes routed to
+the exact host oracle on the wave path and the synchronous ``schedule``
+(ROADMAP §1.2), gangs on the wave path (§1.4), and live inter-pod
+affinity on the synchronous ``schedule`` path (§1.2, the reference's
+``_run_wave``).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch import resolve_device
-from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.api.types import Pod, SelectorOperator
 from kubernetes_tpu_torch.convert import tensor_from_numpy
 from kubernetes_tpu_torch.engine import waves
 from kubernetes_tpu_torch.engine.batch import (
@@ -72,8 +78,11 @@ from kubernetes_tpu_torch.state.snapshot import (
 from kubernetes_tpu_torch.state.volumes import VolumeContext
 from kubernetes_tpu_torch.utils.trace import COUNTERS, timed_span
 
-HOST_ORACLE_SLICE = ("the host-oracle routes (ops/oracle*, policy_algos), "
-                     "ROADMAP §1.2 of the port")
+HOST_ORACLE_SLICE = ("the host-oracle routes of the wave path and of the "
+                     "synchronous schedule() (the host-exact rows and their "
+                     "oracle tail), ROADMAP §1.2 of the port")
+POLICY_SLICE = ("Policy algorithms (ops/policy_algos), ROADMAP §1.2 of the "
+                "port")
 SYNC_AFFINITY_SLICE = ("inter-pod affinity and selector spreading on the "
                        "synchronous schedule() path (the reference's "
                        "_run_wave), ROADMAP §1.2 of the port; the pipelined "
@@ -119,6 +128,284 @@ def _aff_mode(adata, priorities) -> Tuple[Tuple[bool, bool, bool],
 # ---------------------------------------------------------------------------
 
 
+class EvalCache:
+    """Per-request amortization for the extender's evaluate_pod hot path —
+    the sidecar analog of the reference's 100-entry equivalence LRU
+    (core/equivalence_cache.go:33-54) plus vocab-growth isolation:
+
+    - pair collection (collect_pod_pairs over every NodeInfo) cached keyed
+      on snapshot.version, with existing pods' topology keys interned ONCE
+      per version (not per request);
+    - (ClassBatch, AffinityData) LRU keyed on (snapshot.version, pod class
+      key) so repeat evaluations of equivalent pods skip tensorization;
+    - label-vocab isolation: a pod whose selectors/topology keys would GROW
+      the shared vocab (adversarial label churn -> full snapshot rebuild
+      per request) is routed to the exact object-level oracle instead, and
+      its pairs are queued; the next cache sync interns the queue in one
+      batch, so rebuilds are bounded at one per sync no matter the request
+      pattern."""
+
+    MAX_PENDING = 4096
+
+    def __init__(self, lru_size: int = 100, result_size: int = 2048):
+        from collections import OrderedDict
+        self.lru_size = lru_size
+        self.result_size = result_size
+        self._lru = OrderedDict()
+        self._results = OrderedDict()
+        self._results_ver = None  # results are reachable only within one
+        # snapshot-version window (rkey embeds the version); a version move
+        # clears the memo wholesale instead of letting up to result_size
+        # dead ~25KB (fits, scores) pairs rot in FIFO order
+        self._pairs_version = -1
+        self._pairs = None
+        self._pending_pairs: set = set()
+        self._pending_images: set = set()
+        self._pending_conflicts: set = set()
+        self._pending_pds: set = set()
+        self._sync_seen = False
+        self.oracle_routes = 0  # diagnostics for tests/metrics
+        self.builds = 0
+        self.result_hits = 0
+        # affinity-relevance generation, maintained by the owner (the
+        # extender backend): bumped whenever the set of cached pods that
+        # carry pod (anti-)affinity may have changed. Affinity-free
+        # encodings key on (vocab_gen, aff_gen) instead of the full
+        # snapshot version, so a stream of plain binds (scheduleOne compat
+        # mode) reuses them instead of re-tensorizing per capacity delta.
+        self.aff_gen = 0
+        # True when NO pod in the owner's cache carries pod (anti-)affinity
+        # — lets plain-pod evaluations skip pair collection + AffinityData
+        # entirely (the symmetry check has nothing to check). Owners that
+        # cannot prove this leave it False; everything still works, slower.
+        self.cluster_aff_free = False
+
+    def on_sync(self) -> None:
+        """Cluster state resynced (the sidecar's /cache/... endpoints) —
+        queued request pairs may intern at the next evaluation."""
+        self._sync_seen = True
+        self.aff_gen += 1
+        self._results.clear()
+
+    def flush_pending(self, snap: ClusterSnapshot) -> None:
+        """Intern the queued request vocab entries in ONE rebuild per vocab,
+        only after a sync boundary — the bounded-growth half of the
+        isolation story."""
+        if not self._sync_seen:
+            return
+        if self._pending_pairs:
+            for k, v in self._pending_pairs:
+                snap.ensure_label_pair(k, v)
+            self._pending_pairs.clear()
+            snap.finalize_labels()
+        if self._pending_images:
+            for name in self._pending_images:
+                snap.ensure_image(name)
+            self._pending_images.clear()
+            snap.finalize_images()
+        if self._pending_conflicts or self._pending_pds:
+            for key in self._pending_conflicts:
+                snap.ensure_conflict_key(key)
+            for kind, vid in self._pending_pds:
+                snap.ensure_pd_id(kind, vid)
+            self._pending_conflicts.clear()
+            self._pending_pds.clear()
+            snap.finalize_volumes()
+        self._sync_seen = False
+
+    # -------------------------------------------------------------- pairs
+
+    def pairs_for(self, snap: ClusterSnapshot, infos):
+        """(all_pairs, aff_pairs) for the current cluster state; interns
+        existing-pod topology keys + any queued request pairs, then
+        finalizes the label matrix so the version is stable afterwards."""
+        if self._pairs_version == snap.version and self._pairs is not None:
+            return self._pairs
+        all_pairs, aff_pairs = aff_ops.collect_pod_pairs(infos)
+        aff_ops.intern_topology_pairs(snap, [], aff_pairs)
+        for k, v in self._pending_pairs:
+            snap.ensure_label_pair(k, v)
+        self._pending_pairs.clear()
+        snap.finalize_labels()
+        self._pairs = (all_pairs, aff_pairs)
+        self._pairs_version = snap.version
+        return self._pairs
+
+    # ----------------------------------------------------- vocab isolation
+
+    def vocab_missing(self, pod: Pod, snap: ClusterSnapshot,
+                      volume_ctx=None) -> bool:
+        """Would encoding this pod grow ANY snapshot vocab (label pairs,
+        container images, volume conflict keys / PD ids)? If yes, queue the
+        entries for the next sync and answer True (caller routes to the
+        oracle). Guarding only labels would leave image/volume churn as a
+        per-request rebuild vector — PodBatch interns those too
+        (snapshot.py ensure_image/ensure_conflict_key/ensure_pd_id)."""
+        pairs = set()
+        vocab = snap.label_vocab
+        grown = False
+        pend = len(self._pending_images) + len(self._pending_conflicts) \
+            + len(self._pending_pds)
+        for c in pod.containers:
+            if c.image and snap.image_vocab.get(c.image, "") < 0:
+                grown = True
+                if pend < self.MAX_PENDING:
+                    self._pending_images.add(c.image)
+        if pod.volumes:
+            from kubernetes_tpu_torch.state import volumes as volmod
+            for key, _ro in volmod.pod_conflict_keys(pod):
+                if snap.conflict_vocab.get(key, "") < 0:
+                    grown = True
+                    if pend < self.MAX_PENDING:
+                        self._pending_conflicts.add(key)
+            if volume_ctx is not None:
+                for kind, vid in volmod.pd_filter_ids(pod, volume_ctx):
+                    if snap.pd_vocab.get(str(kind) + "\x00" + vid, "") < 0:
+                        grown = True
+                        if pend < self.MAX_PENDING:
+                            self._pending_pds.add((kind, vid))
+        for k, v in pod.node_selector.items():
+            if vocab.get(k, v) < 0:
+                pairs.add((k, v))
+        a = pod.affinity
+        terms = []
+        if a is not None and a.node_affinity is not None:
+            if a.node_affinity.required_terms:
+                terms.extend(a.node_affinity.required_terms)
+            terms.extend(t for _w, t in a.node_affinity.preferred_terms)
+        for t in terms:
+            for r in t.match_expressions:
+                if SelectorOperator(r.operator) == SelectorOperator.IN:
+                    for v in r.values:
+                        if vocab.get(r.key, v) < 0:
+                            pairs.add((r.key, v))
+                else:  # Exists/NotIn/Gt/Lt expand over node-present values
+                    for v in snap.node_values_for_key(r.key):
+                        if vocab.get(r.key, v) < 0:
+                            pairs.add((r.key, v))
+        for key in aff_ops._term_topology_keys(pod):
+            for v in snap.node_values_for_key(key):
+                if vocab.get(key, v) < 0:
+                    pairs.add((key, v))
+        if pairs or grown:
+            if len(self._pending_pairs) < self.MAX_PENDING:
+                self._pending_pairs.update(pairs)
+            self.oracle_routes += 1
+            return True
+        return False
+
+    # ------------------------------------------------------------------ LRU
+
+    @staticmethod
+    def _wkey(workloads: Sequence) -> tuple:
+        return tuple(sorted((w.kind, w.namespace, w.name, w.resource_version)
+                            for w in workloads))
+
+    def get_encoded(self, pod: Pod, snap: ClusterSnapshot, build,
+                    workloads: Sequence = (), ckey=None, aff_free=False):
+        """Encoded-class entry via the LRU; `build()` constructs on miss.
+
+        Key: affinity-FREE classes (no pod affinity, no workloads, cluster
+        proven affinity-free) key on (vocab_gen, aff_gen) — their encoding
+        reads only vocabs and the node order, so capacity deltas (binds)
+        don't invalidate them. Affinity-BEARING classes key on the full
+        snapshot version, exactly as the reference re-derives predicate
+        metadata against the live cache per pod."""
+        wkey = self._wkey(workloads)
+        struct = (snap.vocab_gen, self.aff_gen) if aff_free else snap.version
+        key = (struct, wkey, ckey if ckey is not None else pod_class_key(pod))
+        hit = self._lru.get(key)
+        if hit is not None:
+            self._lru.move_to_end(key)
+            return hit
+        val = build()
+        self.builds += 1
+        self._lru[key] = val
+        if len(self._lru) > self.lru_size:
+            self._lru.popitem(last=False)
+        return val
+
+    # ------------------------------------------------------------- results
+
+    def _roll_results(self, version) -> None:
+        if version != self._results_ver:
+            self._results.clear()
+            self._results_ver = version
+
+    def get_result(self, key):
+        """(fits, scores) memo for one (snapshot version, priority config,
+        class) — the fused-verb cache: /prioritize after /filter for the
+        same pod (or any equivalent pod at the same cluster state) returns
+        without touching the device. Invalidation is structural: the
+        snapshot version moving clears the whole window (old-version
+        entries can never hit again — version is monotonic), on_sync
+        clears outright."""
+        self._roll_results(key[0])
+        hit = self._results.get(key)
+        if hit is not None:
+            self._results.move_to_end(key)
+            self.result_hits += 1
+        return hit
+
+    def put_result(self, key, value) -> None:
+        self._roll_results(key[0])
+        self._results[key] = value
+        if len(self._results) > self.result_size:
+            self._results.popitem(last=False)
+
+
+def _oracle_eval(pod, infos, snap, priorities, workloads, hard_weight,
+                 volume_ctx, policy_algos):
+    """Exact object-level /filter + /prioritize (the reference's per-pod
+    predicate/priority calls, no tensorization)."""
+    from kubernetes_tpu_torch.ops import oracle
+    from kubernetes_tpu_torch.ops.oracle_ext import (
+        AffinityMeta,
+        SchedulingContext,
+    )
+    ctx = SchedulingContext(infos, list(workloads),
+                            hard_pod_affinity_weight=hard_weight,
+                            volume_ctx=volume_ctx,
+                            policy_algos=policy_algos)
+    meta = AffinityMeta(pod, ctx)
+    names = snap.node_names
+    n_pad = snap.valid.shape[0]
+    m = np.zeros(n_pad, dtype=bool)
+    for i, nm in enumerate(names):
+        m[i] = oracle.pod_fits(pod, infos[nm], ctx, meta)
+    s = np.zeros(n_pad, dtype=np.int64)
+    fit_idx = np.nonzero(m)[0]
+    if len(fit_idx):
+        fit_infos = [infos[names[i]] for i in fit_idx]
+        per = oracle.prioritize(pod, fit_infos, priorities, ctx)
+        s[fit_idx] = per
+    return m, s
+
+
+class _EncodedClass:
+    """One LRU entry of the extender fast lane: the host encodings plus
+    their DEVICE-resident uploads, so repeat evaluations of an equivalent
+    pod re-launch over tensors already on the device instead of
+    re-tensorizing + re-transferring per request."""
+
+    __slots__ = ("batch", "adata", "parr", "aff")
+
+    def __init__(self, batch, adata, parr, aff):
+        self.batch = batch
+        self.adata = adata
+        self.parr = parr    # device pod-side tensors (shape-bucketed)
+        self.aff = aff      # device affinity tensors, or None when inert
+
+
+def _zero_occupancy(aff, labels):
+    """The occupancy carry of an evaluation that commits nothing:
+    commdom0 [C, L], comm_cnt0 [C] (int32 zeros on the labels' device)."""
+    c_dim = aff["m_aff"].shape[0]
+    dev = labels.device
+    return (torch.zeros((c_dim, labels.shape[1]), dtype=I32, device=dev),
+            torch.zeros(c_dim, dtype=I32, device=dev))
+
+
 def _fused_eval(parr, narr, aff, priorities, weights, aff_mode):
     """The single-pod [1,N] evaluation: predicate chain + weighted
     priorities + (when live) the zero-occupancy affinity/spread functions,
@@ -130,14 +417,8 @@ def _fused_eval(parr, narr, aff, priorities, weights, aff_mode):
     s = prio.score(parr, narr, priorities)[0]
     if fits_on or prio_on or spread_on:
         labels = narr["labels"]
-        dev = labels.device
         pre = aff_ops.precompute_static(aff, labels)
-        c_dim = aff["m_aff"].shape[0]
-        commdom0 = torch.zeros((c_dim, labels.shape[1]), dtype=torch.int32,
-                               device=dev)
-        committed0 = torch.zeros((c_dim, labels.shape[0]),
-                                 dtype=torch.int32, device=dev)
-        comm_cnt0 = torch.zeros(c_dim, dtype=torch.int32, device=dev)
+        commdom0, comm_cnt0 = _zero_occupancy(aff, labels)
         if fits_on:
             m = m & aff_ops.step_fits(aff, pre, 0, commdom0, comm_cnt0,
                                       labels)
@@ -145,47 +426,362 @@ def _fused_eval(parr, narr, aff, priorities, weights, aff_mode):
             cnt = aff_ops.step_prio_counts(aff, pre, 0, commdom0, labels)
             s = s + w_ip * aff_ops.interpod_score(cnt, m)
         if spread_on:
+            committed0 = torch.zeros((comm_cnt0.shape[0], labels.shape[0]),
+                                     dtype=I32, device=labels.device)
             cnt = aff_ops.step_spread_counts(aff, 0, committed0)
             s = s + w_sp * aff_ops.spread_score(aff, aff["sp_has"][0], cnt,
                                                 m)
     return m, s
 
 
+def _fused_eval_batch(parr, narr, aff, priorities, weights, aff_mode):
+    """The [C, N] sibling of _fused_eval: every row of a coalesced
+    multi-frontend batch evaluated in one pass — predicate chain +
+    weighted priorities + (when live) the zero-occupancy affinity/spread
+    functions, class-vectorized via step_fits_all / step_prio_counts_all
+    (row c is bit-identical to _fused_eval of class c alone, since zero
+    occupancy has no cross-row carry). The static side is one stacked
+    incidence product of C·(S+2) rows, and each step function one more."""
+    fits_on, prio_on, spread_on = aff_mode
+    w_ip, w_sp = weights
+    m = preds.fits(parr, narr)                       # [C, N]
+    s = prio.score(parr, narr, priorities)           # [C, N]
+    if fits_on or prio_on or spread_on:
+        labels = narr["labels"]
+        pre = aff_ops.precompute_static(aff, labels)
+        commdom0, comm_cnt0 = _zero_occupancy(aff, labels)
+        if fits_on:
+            m = m & aff_ops.step_fits_all(aff, pre, commdom0, comm_cnt0,
+                                          labels)
+        if prio_on:
+            cnt = aff_ops.step_prio_counts_all(aff, pre, commdom0, labels)
+            s = s + w_ip * aff_ops.interpod_score(cnt, m)
+        if spread_on:
+            # zero occupancy: the committed term sp_cls @ committed0 of
+            # the reference is zero, so the counts are the static ones
+            s = s + w_sp * aff_ops.spread_score(aff, aff["sp_has"],
+                                                aff["sp_static"], m)
+    return m, s
+
+
+def _owned(t: torch.Tensor) -> np.ndarray:
+    """The verdict's one device->host fetch, as an array that owns its
+    memory: a memo entry is handed to every follower of a coalescing
+    window and to later requests, so it must alias no tensor (on the CPU,
+    ``Tensor.numpy()`` shares the tensor's memory)."""
+    return t.cpu().numpy().copy()
+
+
+def _check_policy(policy_algos) -> None:
+    if policy_algos is not None and policy_algos.active:
+        raise NotImplementedError(
+            f"an active policy_algos in the verdict: {POLICY_SLICE}")
+
+
 def evaluate_pod(pod: Pod, infos, snap: ClusterSnapshot,
                  priorities: Tuple[Tuple[str, int], ...],
-                 workloads: Sequence = (),
-                 device=None) -> Tuple[np.ndarray, np.ndarray]:
+                 workloads: Sequence = (), hard_weight: int = 1,
+                 volume_ctx=None, policy_algos=None, eval_cache=None,
+                 device_nodes_provider=None, device=None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-node (fits [N] bool, scores [N] int32) for ONE pod against the
     cluster state — the extender's /filter + /prioritize evaluation
     (core/extender.go:100 Filter, :157 Prioritize). No state is committed:
-    the affinity/spread functions run with zero occupancy. `snap` must
-    already be refreshed against `infos`. ``device=None`` is the card.
-    Pods that need the exact host oracle raise NotImplementedError (a
-    later slice)."""
+    a single pod has no in-batch carry, so the affinity/spread functions
+    run with zero occupancy (the static side only — exactly what the
+    reference's per-pod predicate/priority calls see through the scheduler
+    cache). ``device=None`` is the card; the node tensors of
+    `device_nodes_provider` must lie on the same device.
+
+    `snap` must already be refreshed against `infos`. Routes to the exact
+    host oracle when the pod's features over-approximate on device
+    (needs_host_check / affinity slot overflow) or would grow a snapshot
+    vocab; the oracle route scores int64 over the filtered set, the device
+    route int32 over every node (never differing on fit verdicts). An
+    active `policy_algos` raises NotImplementedError (ROADMAP §1.2).
+
+    The warm fast lane (eval_cache given) is layered:
+      1. result memo — same class at the same snapshot version returns the
+         cached (m, s) with zero device work (the fused filter+prioritize
+         contract: the second verb rides the first's evaluation);
+      2. encoded-class LRU — holds device-RESIDENT pod/affinity tensors;
+         affinity-free classes survive capacity deltas (vocab_gen keying);
+      3. one fused evaluation over the caller's device-resident node
+         tensors (device_nodes_provider — CALLED only after vocab flushes,
+         so a label-matrix rebuild can never race a stale upload;
+         node_arrays(snap) uploads fresh when absent).
+    """
     dev = resolve_device(device)
+    _check_policy(policy_algos)
+    w_ip = sum(w for nm, w in priorities if nm == "InterPodAffinityPriority")
+    w_sp = sum(w for nm, w in priorities if nm == "SelectorSpreadPriority")
+
+    if eval_cache is not None:
+        # queued churn pairs intern in one batch at a sync boundary
+        eval_cache.flush_pending(snap)
+        # vocab isolation: a pod that would grow any snapshot vocab must
+        # not touch the snapshot at all (EvalCache docstring)
+        if eval_cache.vocab_missing(pod, snap, volume_ctx=volume_ctx):
+            with timed_span("extender.oracle_eval"):
+                return _oracle_eval(pod, infos, snap, priorities, workloads,
+                                    hard_weight, volume_ctx, policy_algos)
+        ckey = pod_class_key(pod)
+        # priorities + hard_weight are part of BOTH cache keys: the
+        # encoding's `need` gate and the scores depend on them, and nothing
+        # forces a shared EvalCache to serve one fixed configuration
+        cfg = (priorities, hard_weight)
+        rkey = (snap.version, eval_cache._wkey(workloads), cfg, ckey)
+        hit = eval_cache.get_result(rkey)
+        if hit is not None:
+            COUNTERS.inc("extender.result_hit")
+            return hit
+        # a pod with no pod (anti-)affinity in a cluster with no
+        # affinity-carrying pods and no workloads has an all-zero
+        # AffinityData by construction — skip pair collection and the
+        # affinity build entirely, and key the encoding on the vocab
+        # generation so binds don't invalidate it
+        aff_free = (eval_cache.cluster_aff_free and not workloads
+                    and not aff_ops._has_affinity(pod))
+        if aff_free:
+            def _build():
+                with timed_span("extender.encode"):
+                    b = ClassBatch([pod], snap)
+                    return _EncodedClass(
+                        b, None, preds.pod_arrays_bucketed(b.reps_batch, dev),
+                        None)
+        else:
+            with timed_span("extender.pairs"):
+                all_pairs, aff_pairs = eval_cache.pairs_for(snap, infos)
+
+            def _build():
+                with timed_span("extender.encode"):
+                    COUNTERS.inc("extender.affinity_data_build")
+                    b = ClassBatch([pod], snap)
+                    a = aff_ops.AffinityData(b.reps, snap, all_pairs,
+                                             aff_pairs, list(workloads),
+                                             hard_weight)
+                    need = (a.fits_needed
+                            or (bool(w_ip) and a.prio_needed)
+                            or (bool(w_sp) and a.spread_needed))
+                    return _EncodedClass(
+                        b, a, preds.pod_arrays_bucketed(b.reps_batch, dev),
+                        a.device_arrays(dev) if need else None)
+
+        enc = eval_cache.get_encoded(pod, snap, _build, workloads=workloads,
+                                     ckey=(cfg, ckey), aff_free=aff_free)
+        out = _eval_dispatch(pod, infos, snap, priorities, workloads,
+                             hard_weight, volume_ctx, policy_algos, enc,
+                             device_nodes_provider, w_ip, w_sp, dev)
+        eval_cache.put_result(rkey, out)
+        return out
+
+    # uncached path (no EvalCache owner): build fresh per call, then the
+    # SAME dispatch tail — args-mode and the warm lane cannot drift
     with timed_span("extender.encode"):
         all_pairs, aff_pairs = aff_ops.collect_pod_pairs(infos)
         aff_ops.intern_topology_pairs(snap, [pod], aff_pairs)
         batch = ClassBatch([pod], snap)
         adata = aff_ops.AffinityData(batch.reps, snap, all_pairs, aff_pairs,
-                                     list(workloads),
-                                     HARD_POD_AFFINITY_WEIGHT)
-    if batch.reps_batch.needs_host_check[0] or adata.overflow[0]:
-        raise NotImplementedError(
-            f"this pod needs the exact host oracle: {HOST_ORACLE_SLICE}")
-    aff_mode, weights = _aff_mode(adata, priorities)
+                                     list(workloads), hard_weight)
+        need = (adata.fits_needed or (bool(w_ip) and adata.prio_needed)
+                or (bool(w_sp) and adata.spread_needed))
+        enc = _EncodedClass(batch, adata,
+                            preds.pod_arrays_bucketed(batch.reps_batch, dev),
+                            adata.device_arrays(dev) if need else None)
+    return _eval_dispatch(pod, infos, snap, priorities, workloads,
+                          hard_weight, volume_ctx, policy_algos, enc,
+                          device_nodes_provider, w_ip, w_sp, dev)
+
+
+def _eval_dispatch(pod, infos, snap, priorities, workloads, hard_weight,
+                   volume_ctx, policy_algos, enc: "_EncodedClass",
+                   device_nodes_provider, w_ip: int, w_sp: int, dev):
+    """Shared routing tail of evaluate_pod: exact-oracle gate
+    (needs_host_check / slot overflow), then ONE fused evaluation over the
+    caller's device-resident node tensors. Both the warm fast lane and the
+    uncached args-mode path end here, so the dispatch contract cannot
+    drift between them."""
+    batch, adata = enc.batch, enc.adata
+    if batch.reps_batch.needs_host_check[0] \
+            or (adata is not None and adata.overflow[0]):
+        # exact object-level path (same routing as the reference's
+        # SchedulingEngine.schedule)
+        with timed_span("extender.oracle_eval"):
+            return _oracle_eval(pod, infos, snap, priorities, workloads,
+                                hard_weight, volume_ctx, policy_algos)
     plain = tuple((nm, w) for nm, w in priorities
                   if nm not in prio.AFFINITY_PRIORITIES)
+    fits_on = adata is not None and adata.fits_needed
+    prio_on = adata is not None and bool(w_ip) and adata.prio_needed
+    spread_on = adata is not None and bool(w_sp) and adata.spread_needed
     with timed_span("extender.upload"):
-        parr = preds.pod_arrays_bucketed(batch.reps_batch, dev)
-        narr = preds.node_arrays(snap, dev)
-        aff = adata.device_arrays(dev) if any(aff_mode) else None
+        narr = device_nodes_provider() if device_nodes_provider is not None \
+            else preds.node_arrays(snap, dev)
     with timed_span("extender.kernel"):
-        m, s = _fused_eval(parr, narr, aff, plain, weights, aff_mode)
-        m = m.cpu().numpy()
-        s = s.cpu().numpy()
+        COUNTERS.inc("extender.fused_eval")
+        m, s = _fused_eval(
+            enc.parr, narr,
+            enc.aff if (fits_on or prio_on or spread_on) else None,
+            plain, (w_ip, w_sp), (fits_on, prio_on, spread_on))
+        # the extender's one result fetch: the verb returns (fits, scores)
+        # to an HTTP caller, so this stall IS the response
+        m = _owned(m)
+        s = _owned(s)
     m[len(snap.node_names):] = False
     return m, s
+
+
+def evaluate_pods_batch(pods: Sequence[Pod], infos, snap: ClusterSnapshot,
+                        priorities: Tuple[Tuple[str, int], ...],
+                        workloads: Sequence = (), hard_weight: int = 1,
+                        volume_ctx=None, policy_algos=None, eval_cache=None,
+                        device_nodes_provider=None, device=None
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Coalesced multi-frontend evaluation: one (fits, scores) pair per
+    pod, computed with at most ONE fused [C, N] evaluation for the batch's
+    unique pod classes — the device half of the extender's micro-batch
+    window. ``device=None`` is the card. Per-pod ROUTING is identical to
+    evaluate_pod:
+
+      - vocab growth       -> exact host oracle (isolation unchanged);
+      - result-memo hit    -> served with zero device work;
+      - one unique class   -> delegated to evaluate_pod (the single-pod
+        warm lane, so its encoded-class LRU and span counters keep their
+        exact contracts);
+      - several classes    -> ONE ClassBatch over the class reps, class
+        axis padded to the bucket ladder (pod_arrays_bucketed rows=), one
+        _fused_eval_batch, rows scattered per request; host-check /
+        slot-overflow classes drop to the oracle per class exactly as
+        _eval_dispatch routes the single pod.
+
+    Every class's (m, s) enters the result memo, so followers of the same
+    coalescing window and later requests hit without dispatching. `snap`
+    must already be refreshed; no state is committed (zero-occupancy
+    evaluation, same contract as evaluate_pod)."""
+    from collections import OrderedDict
+
+    dev = resolve_device(device)
+    _check_policy(policy_algos)
+    n = len(pods)
+    if eval_cache is None:
+        # no cache owner: per-request evaluation is the only honest shape
+        # (nothing to coalesce against between stateless snapshots)
+        return [evaluate_pod(p, infos, snap, priorities, workloads,
+                             hard_weight, volume_ctx, policy_algos, None,
+                             device_nodes_provider, dev) for p in pods]
+    results: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * n
+    eval_cache.flush_pending(snap)
+    w_ip = sum(w for nm, w in priorities if nm == "InterPodAffinityPriority")
+    w_sp = sum(w for nm, w in priorities if nm == "SelectorSpreadPriority")
+    cfg = (priorities, hard_weight)
+    wkey = eval_cache._wkey(workloads)
+
+    def _oracle(pod):
+        with timed_span("extender.oracle_eval"):
+            return _oracle_eval(pod, infos, snap, priorities, workloads,
+                                hard_weight, volume_ctx, policy_algos)
+
+    # per-pod routing: vocab isolation + memo, then class dedup
+    uniq = OrderedDict()  # ckey -> [pod indices], first-seen order
+    rep_of = {}
+    for i, pod in enumerate(pods):
+        if eval_cache.vocab_missing(pod, snap, volume_ctx=volume_ctx):
+            results[i] = _oracle(pod)
+            continue
+        ckey = pod_class_key(pod)
+        rkey = (snap.version, wkey, cfg, ckey)
+        hit = eval_cache.get_result(rkey)
+        if hit is not None:
+            COUNTERS.inc("extender.result_hit")
+            results[i] = hit
+            continue
+        members = uniq.get(ckey)
+        if members is None:
+            uniq[ckey] = members = []
+            rep_of[ckey] = pod
+        members.append(i)
+    # canonical class order (sorted by key repr): the encoded-batch LRU
+    # entry is keyed on the class TUPLE, and the same class set arriving
+    # in a different interleaving must hit the same entry — row c of the
+    # encoding maps to canonical class c by construction
+    order = sorted(uniq, key=repr)
+    uniq = OrderedDict((ck, uniq[ck]) for ck in order)
+    reps: List[Pod] = [rep_of[ck] for ck in order]
+    if not uniq:
+        return results  # type: ignore[return-value]
+    if len(uniq) == 1:
+        # one class (the compat-storm common case) rides the single-pod
+        # warm lane — encoded-class LRU, result memo, exact span counters
+        for ckey, members in uniq.items():
+            out = evaluate_pod(pods[members[0]], infos, snap, priorities,
+                               workloads, hard_weight, volume_ctx,
+                               policy_algos, eval_cache,
+                               device_nodes_provider, dev)
+            for i in members:
+                results[i] = out
+        return results  # type: ignore[return-value]
+
+    COUNTERS.inc("extender.batch_classes", len(uniq))
+    aff_free = (eval_cache.cluster_aff_free and not workloads
+                and not any(aff_ops._has_affinity(r) for r in reps))
+    if not aff_free:
+        with timed_span("extender.pairs"):
+            all_pairs, aff_pairs = eval_cache.pairs_for(snap, infos)
+
+    def _build():
+        with timed_span("extender.encode"):
+            b = ClassBatch(reps, snap)
+            c_pad = bucket(b.num_classes, lo=4)
+            parr = preds.pod_arrays_bucketed(b.reps_batch, dev, rows=c_pad)
+            if aff_free:
+                return _EncodedClass(b, None, parr, None)
+            COUNTERS.inc("extender.affinity_data_build")
+            a = aff_ops.AffinityData(b.reps, snap, all_pairs, aff_pairs,
+                                     list(workloads), hard_weight,
+                                     c_pad=c_pad)
+            need = (a.fits_needed or (bool(w_ip) and a.prio_needed)
+                    or (bool(w_sp) and a.spread_needed))
+            return _EncodedClass(b, a, parr,
+                                 a.device_arrays(dev) if need else None)
+
+    enc = eval_cache.get_encoded(reps[0], snap, _build, workloads=workloads,
+                                 ckey=(cfg, tuple(uniq)), aff_free=aff_free)
+    batch, adata = enc.batch, enc.adata
+    fits_on = adata is not None and adata.fits_needed
+    prio_on = adata is not None and bool(w_ip) and adata.prio_needed
+    spread_on = adata is not None and bool(w_sp) and adata.spread_needed
+    plain = tuple((nm, w) for nm, w in priorities
+                  if nm not in prio.AFFINITY_PRIORITIES)
+    m_all = s_all = None
+    nhc = batch.reps_batch.needs_host_check
+    for c, (ckey, members) in enumerate(uniq.items()):
+        if nhc[c] or (adata is not None and adata.overflow[c]):
+            out = _oracle(reps[c])  # exact object-level route, per class
+        else:
+            if m_all is None:
+                with timed_span("extender.upload"):
+                    narr = device_nodes_provider() \
+                        if device_nodes_provider is not None \
+                        else preds.node_arrays(snap, dev)
+                with timed_span("extender.kernel_batch"):
+                    COUNTERS.inc("extender.fused_eval_batch")
+                    m_d, s_d = _fused_eval_batch(
+                        enc.parr, narr,
+                        enc.aff if (fits_on or prio_on or spread_on)
+                        else None,
+                        plain, (w_ip, w_sp),
+                        (fits_on, prio_on, spread_on))
+                    # the batch's one result fetch: every coalesced verb
+                    # returns its row to an HTTP caller, so this stall IS
+                    # the response set
+                    m_all = _owned(m_d)
+                    s_all = _owned(s_d)
+                m_all[:, len(snap.node_names):] = False
+            out = (m_all[c], s_all[c])
+        eval_cache.put_result((snap.version, wkey, cfg, ckey), out)
+        for i in members:
+            results[i] = out
+    return results  # type: ignore[return-value]
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ the watch thread.
 from __future__ import annotations
 
 import threading
+from kubernetes_tpu_torch.analysis import lockcheck
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -51,7 +52,7 @@ class SchedulerCache:
     def __init__(self, ttl_seconds: float = 30.0, now: Callable[[], float] = time.monotonic):
         self._ttl = ttl_seconds
         self._now = now
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("SchedulerCache._lock")
         self._pod_states: Dict[str, _PodState] = {}
         self._nodes: Dict[str, NodeInfo] = {}
         # occupancy-churn sequence: bumped once per pod entering or leaving
@@ -92,6 +93,7 @@ class SchedulerCache:
 
     def _aff_event_locked(self, pod: Pod, node_name: str, delta: int) -> None:
         """Bump aff_seq AND record what moved (caller holds the lock)."""
+        lockcheck.assert_held(self._lock, "_aff_event_locked")
         self.aff_seq += 1
         if delta != 0 and pod.has_pod_affinity():
             self._aff_pods += delta
@@ -436,6 +438,7 @@ class SchedulerCache:
     # -------------------------------------------------------------- internal
 
     def _add_pod_locked(self, pod: Pod) -> None:
+        lockcheck.assert_held(self._lock, "_add_pod_locked")
         info = self._nodes.get(pod.node_name)
         if info is None:
             info = NodeInfo()
@@ -444,6 +447,7 @@ class SchedulerCache:
         self._aff_event_locked(pod, pod.node_name, 1)
 
     def _remove_pod_locked(self, pod: Pod) -> None:
+        lockcheck.assert_held(self._lock, "_remove_pod_locked")
         info = self._nodes.get(pod.node_name)
         if info is not None:
             info.remove_pod(pod)
@@ -483,7 +487,7 @@ class BindLedger:
     def __init__(self, cap: int = 65536):
         from collections import OrderedDict
         self._cap = cap
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("BindLedger._lock")
         self._entries: "OrderedDict[str, list]" = OrderedDict()
         # entry: [status, node, error] with status in
         # {"pending", "ok", "conflict", "uncertain"}
@@ -536,6 +540,7 @@ class BindLedger:
         # uncertain records are pinned). Incremental oldest-first scan —
         # at capacity this runs per bind, and materializing a 65k-key
         # list per commit would put an O(cap) copy on the bind hot path
+        lockcheck.assert_held(self._lock, "_trim_locked")
         while len(self._entries) > self._cap:
             for k in self._entries:
                 if self._entries[k][0] in ("ok", "conflict"):

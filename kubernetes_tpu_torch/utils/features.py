@@ -9,6 +9,7 @@ the reference at v1.7: alpha features off, beta features on.
 from __future__ import annotations
 
 import threading
+from kubernetes_tpu_torch.analysis import lockcheck
 from typing import Dict
 
 # name -> default enabled (kube_features.go:137-150 defaultKubernetesFeatureGates)
@@ -43,7 +44,7 @@ class FeatureGate:
     was explicitly set (feature_gate.go Set)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("FeatureGate._lock")
         self._enabled = dict(_DEFAULTS)
         self._explicit: set = set()
 

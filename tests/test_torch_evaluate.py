@@ -3,7 +3,7 @@ against the reference's (eval_cache=None), exactly: fits and scores for
 probes against a 64-node cluster that holds bound pods with inter-pod
 (anti-)affinity and one Service, with the affinity fits, the
 InterPodAffinity priority and the selector spreading each live for some
-probe."""
+probe, and for a pod that takes the exact host oracle."""
 
 import numpy as np
 import pytest
@@ -74,10 +74,19 @@ def test_evaluate_pod_matches_reference(worlds):
     assert kernels.LAUNCHES["incidence_matmul"] == 0   # CPU: plain version
 
 
-def test_evaluate_pod_host_oracle_route_raises(worlds):
-    _, (tc, ts, tw, _) = worlds
-    pod = tt.make_pod("many-ports", namespace="bench", cpu=100,
-                      ports=list(range(7000, 7009)))
-    with pytest.raises(NotImplementedError, match="host oracle"):
-        tse.evaluate_pod(pod, tc.node_infos(), ts, DEFAULT_PRIORITIES, tw,
-                         device="cpu")
+def test_evaluate_pod_host_oracle_route_matches_reference(worlds):
+    """A pod with more host ports than the device encoding holds takes the
+    exact host oracle, in the port as in the reference: equal fits and
+    int64 scores over the filtered set."""
+    (jc, js, jw, _), (tc, ts, tw, _) = worlds
+    jpod = jt.make_pod("many-ports", namespace="bench", cpu=100,
+                       ports=list(range(7000, 7009)))
+    tpod = tt.make_pod("many-ports", namespace="bench", cpu=100,
+                       ports=list(range(7000, 7009)))
+    jm, jsc = j_eval(jpod, jc.node_infos(), js, DEFAULT_PRIORITIES, jw,
+                     eval_cache=None)
+    tm, tsc = tse.evaluate_pod(tpod, tc.node_infos(), ts, DEFAULT_PRIORITIES,
+                               tw, device="cpu")
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tsc, np.asarray(jsc))
+    assert tsc.dtype == np.int64 and tm.any()

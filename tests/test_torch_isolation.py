@@ -15,8 +15,10 @@ from kubernetes_tpu_torch.engine.scheduler import Scheduler
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     SchedulingEngine,
     evaluate_pod,
+    evaluate_pods_batch,
 )
 from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
+from kubernetes_tpu_torch.server.extender import TPUExtenderBackend
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
 
@@ -70,3 +72,7 @@ def test_entry_points_default_to_the_card():
         evaluate_pod(None, {}, ClusterSnapshot(), ())
     with pytest.raises(RuntimeError, match="CUDA"):
         Scheduler(ApiServerLite())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TPUExtenderBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_pods_batch([], {}, ClusterSnapshot(), ())
