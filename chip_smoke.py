@@ -67,11 +67,30 @@ phase fails. Phases:
      audited. Each kernel's operands at every launch shape of the phase
      are held against its plain version, and the batch's stacked
      incidence product is timed;
-  8. print the per-kernel summary line, then the result line.
+  8. the scheduler daemon with a Policy (the v1.7 knob set of Kubernetes'
+     compatibility_test.go, no extender) from a --policy-config-file, on
+     5,000 hollow nodes labeled region / zone / foo (90%) / bar (half)
+     and 30,000 pending pods: mixed_affinity plus 300 host-static pods
+     (five ORed node-selector terms) and 100 host-exact pods (nine host
+     ports; two Services coupled by ServiceAffinity on region).
+     8a: two SchedulerDaemons on one fake clock; A leads, runs one
+     classic round over half the queue and crashes holding its lease; B
+     waits it out, relists and finishes with step(). 8b: the pipelined
+     drain of the same store contents, Scheduler(policy=...)
+     .run_until_drained(): no pipeline flush, the host-exact rows ride
+     to the oracle tail. 8c: the strict classic round, mixed_affinity at
+     5,000 x 2,000. Each run is audited from the store (phase 6's audit,
+     every pod bound, every pod on a foo node, each coupled Service in
+     one region, each host-static pod in its zone, no host-port clash),
+     and each kernel's operands at every launch shape are held against
+     its plain version; both kernels must launch in each. 8d: the three
+     runs at 512 x 3,000 (strict: 256 x 600) on the card and on the CPU
+     give equal placements and RR counters;
+  9. print the per-kernel summary line, then the result line.
 
-Launch counts are zeroed just before each main-path run (phases 4, 5, 6
-and 7) and read just after it; launches made by the comparisons do not
-count.
+Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
+7 and 8a-8c) and read just after it; launches made by the comparisons do
+not count.
 """
 
 from __future__ import annotations
@@ -1453,6 +1472,385 @@ def extender_service(mods, card, timing):
     return launches, err
 
 
+# ---------------------------------------------------------------- phase 8
+
+# Kubernetes v1.7's compatibility_test.go knob set (the reference's
+# tests/test_policy_compat.py V17_POLICY_JSON) without its extender
+PHASE8_POLICY = {
+    "kind": "Policy", "apiVersion": "v1",
+    "predicates": [
+        {"name": n} for n in (
+            "MatchNodeSelector", "PodFitsResources", "PodFitsHostPorts",
+            "HostName", "NoDiskConflict", "NoVolumeZoneConflict",
+            "MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+            "MaxAzureDiskVolumeCount", "MatchInterPodAffinity",
+            "GeneralPredicates", "PodToleratesNodeTaints",
+            "CheckNodeMemoryPressure", "CheckNodeDiskPressure",
+            "CheckNodeCondition", "NoVolumeNodeConflict")] + [
+        {"name": "CustomServiceAffinity",
+         "argument": {"serviceAffinity": {"labels": ["region"]}}},
+        {"name": "CustomLabelsPresence",
+         "argument": {"labelsPresence": {"labels": ["foo"],
+                                         "presence": True}}}],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "SelectorSpreadPriority", "weight": 1},
+        {"name": "InterPodAffinityPriority", "weight": 1},
+        {"name": "NodePreferAvoidPodsPriority", "weight": 10000},
+        {"name": "NodeAffinityPriority", "weight": 1},
+        {"name": "TaintTolerationPriority", "weight": 1},
+        {"name": "CustomServiceAntiAffinity", "weight": 3,
+         "argument": {"serviceAntiAffinity": {"label": "zone"}}},
+        {"name": "CustomLabelPreference", "weight": 4,
+         "argument": {"labelPreference": {"label": "bar",
+                                          "presence": True}}}]}
+P8_COUNTERS = ("stream.chunk_flush", "engine.wave_dispatch",
+               "engine.wave_host_rows", "engine.wave_host_tail",
+               "engine.classic_host_tail", "engine.classic_strict_rows",
+               "engine.affinity_strict_tail", "engine.tail_rounds",
+               "engine.hostcheck_fence_requeues",
+               "engine.policy_fence_requeues",
+               "engine.affinity_fence_requeues",
+               "engine.fence_reason_capacity",
+               "engine.fence_reason_host_check",
+               "engine.fence_reason_policy")
+P8_PORTS = list(range(7000, 7009))  # nine: past the encoding's eight
+
+
+class FakeClock:
+    """One clock for both daemons' leases, TTLs and backoff."""
+
+    def __init__(self, t=1000.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def policy_world(mods, n_nodes, n_pods, pin_services):
+    """Phase 8's cluster: hollow nodes labeled region r0..r3, zone
+    z0..z15, foo on 90% and bar on half; pending pods: mixed_affinity,
+    1% host-static (five ORed node-selector terms on `zone`, one of them
+    real) and 1/300 host-exact (half with nine host ports, half in two
+    Services that the Policy's ServiceAffinity on region couples), the
+    extra pods spread evenly through the queue. With pin_services the
+    coupled pods name their region in a node selector: an unpinned one
+    makes the exact oracle scan every pod of the cluster for every node
+    (the reference's ServiceAffinity backfill, policy_algos
+    ._service_affinity_labels), which the 5,000 x 30,000 runs cannot
+    afford; the 512-node runs keep them unpinned. Returns (nodes, pods,
+    services)."""
+    hollow, types, workloads = mods
+    nodes = hollow.hollow_nodes(n_nodes)
+    for i, n in enumerate(nodes):
+        n.labels["region"] = f"r{i % 4}"
+        n.labels["zone"] = f"z{i % 16}"
+        if i % 10:
+            n.labels["foo"] = "x"
+        if i % 2:
+            n.labels["bar"] = "y"
+    n_static, n_exact = n_pods // 100, n_pods // 300
+    n_ports = n_exact // 2
+    extra = []
+    for i in range(n_static):
+        terms = [types.NodeSelectorTerm([types.SelectorRequirement(
+            "zone", types.SelectorOperator.IN, [z])])
+            for z in [f"z{i % 16}"] + [f"bogus-{k}" for k in range(4)]]
+        extra.append(types.make_pod(
+            f"hstatic-{i}", namespace="bench", cpu=100, memory=256 << 20,
+            labels={"app": f"hstatic-{i % 8}"},
+            affinity=types.Affinity(
+                node_affinity=types.NodeAffinity(required_terms=terms))))
+    for i in range(n_ports):
+        extra.append(types.make_pod(
+            f"hports-{i}", namespace="bench", cpu=100, memory=256 << 20,
+            labels={"app": "hports"}, ports=P8_PORTS))
+    for i in range(n_exact - n_ports):
+        svc = i % 2
+        extra.append(types.make_pod(
+            f"hsvc-{i}", namespace="bench", cpu=100, memory=256 << 20,
+            labels={"app": f"svc-{svc}"},
+            node_selector={"region": f"r{svc + 1}"} if pin_services
+            else None))
+    mixed = hollow.mixed_affinity_pods(n_pods - len(extra), seed=21)
+    step = len(mixed) // len(extra) + 1
+    pods = []
+    for i, p in enumerate(mixed):
+        if i % step == 0 and extra:
+            pods.append(extra.pop(0))
+        pods.append(p)
+    pods.extend(extra)
+    services = [workloads.Service(f"svc-{s}", "bench",
+                                  selector={"app": f"svc-{s}"})
+                for s in range(2)]
+    return nodes, pods, services
+
+
+def audit_policy(api, tag, n_pods):
+    """audit_store's checks plus phase 8's own: every pod bound, every
+    bound pod on a node carrying foo, each coupled Service in one region,
+    each host-static pod in its zone, no two host-port pods on one
+    node."""
+    bound, unbound = audit_store(api, "mixed_affinity", n_pods)
+    if unbound:
+        fail(f"{tag}: {unbound} pods unbound")
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    regions, port_nodes = {}, []
+    for p in api.list("Pod")[0]:
+        labels = nodes[p.node_name].labels
+        if "foo" not in labels:
+            fail(f"{tag}: {p.name} on {p.node_name}, which lacks foo")
+        app = p.labels.get("app", "")
+        if app.startswith("svc-"):
+            regions.setdefault(app, set()).add(labels["region"])
+        elif p.name.startswith("hstatic-"):
+            want = f"z{int(p.name.split('-')[1]) % 16}"
+            if labels["zone"] != want:
+                fail(f"{tag}: {p.name} on zone {labels['zone']}, not {want}")
+        elif app == "hports":
+            port_nodes.append(p.node_name)
+    if any(len(r) != 1 for r in regions.values()) or len(regions) != 2:
+        fail(f"{tag}: coupled Services across regions: {regions}")
+    if len(set(port_nodes)) != len(port_nodes):
+        fail(f"{tag}: two host-port pods share a node")
+    where = sorted((a, sorted(r)) for a, r in regions.items())
+    log(f"{tag}: policy audit clean ({bound} bound, all on foo nodes; "
+        f"Services in regions {where}; {len(port_nodes)} host-port pods "
+        f"on distinct nodes)")
+
+
+def _p8_counts(COUNTERS):
+    snap = COUNTERS.snapshot()
+    cnt = {k: snap.get(k, (0, 0.0))[0] for k in P8_COUNTERS}
+    spans = {k: round(1e3 * t, 1) for k, (_, t) in sorted(snap.items())
+             if k.startswith(("engine.", "pipeline.")) and t > 0}
+    return cnt, spans
+
+
+def daemon_failover(mods, world, policy_path, device=None, spy=None):
+    """8a: two SchedulerDaemons with one fake clock over one store. A
+    leads and runs one classic round over half the queue, then crashes
+    without releasing its lease; once the clock passes the lease B
+    acquires, relists and finishes the drain with step(). Returns (api,
+    report)."""
+    import contextlib
+    import torch
+    (hollow, api_mod, daemon, kernels, COUNTERS) = mods
+    nodes, pods, services = world
+    api = api_mod.ApiServerLite(max_log=max(200_000,
+                                            4 * (len(nodes) + len(pods))))
+    for svc in services:
+        api.create("Service", svc)
+    for n in nodes:
+        api.create("Node", n)
+    clock = FakeClock()
+    opts = daemon.SchedulerOptions(healthz_port=None,
+                                   policy_config_file=policy_path)
+    a = daemon.SchedulerDaemon(api, "daemon-a", opts, now=clock,
+                               device=device)
+    b = daemon.SchedulerDaemon(api, "daemon-b", opts, now=clock,
+                               device=device)
+    a.step()
+    b.step()
+    if not a.is_leader() or b.is_leader():
+        fail("8a: daemon-a did not take the lease first")
+    for p in pods:
+        api.create("Pod", p)
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    with spy if spy is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        stats_a = a.scheduler.schedule_round(max_batch=len(pods) // 2)
+        if on_card:
+            torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        a.stop(release=False)       # the crash: the lease stays held
+        b.step()
+        if b.is_leader():
+            fail("8a: daemon-b led inside the crashed leader's lease")
+        clock.t += 16.0             # past lease_duration (15 s)
+        t1 = time.perf_counter()
+        rounds = []
+        for _ in range(20):
+            stats = b.step()
+            rounds.append(stats)
+            if b.is_leader() and stats["popped"] == 0 \
+                    and b.scheduler.queue.ready_count() == 0:
+                break
+        if on_card:
+            torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    cnt, spans = _p8_counts(COUNTERS)
+    lease = api.get("Lease", "kube-system", "kube-scheduler")
+    report = {"round_a": stats_a, "rounds_b": rounds, "wall_a": wall_a,
+              "wall_b": wall_b, "counters": cnt, "spans": spans,
+              "launches": launches, "holder": lease.holder,
+              "transitions": lease.leader_transitions,
+              "rr": b.scheduler.engine.rr.counter}
+    b.stop()
+    return api, report
+
+
+def policy_drain(mods, world, policy, device=None, spy=None,
+                 batch_mode="wave"):
+    """8b / 8c: Scheduler(policy=...).run_until_drained() on a fresh store
+    holding `world`. Returns (api, totals, report)."""
+    import contextlib
+    import torch
+    (hollow, api_mod, Scheduler, kernels, COUNTERS) = mods
+    nodes, pods, services = world
+    api = api_mod.ApiServerLite(max_log=max(200_000,
+                                            3 * (len(nodes) + len(pods))))
+    for svc in services:
+        api.create("Service", svc)
+    hollow.load_cluster(api, nodes, pods)
+    sched = Scheduler(api, record_events=False, policy=policy,
+                      batch_mode=batch_mode, device=device)
+    sched.start()
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    with spy if spy is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        tot = sched.run_until_drained()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cnt, spans = _p8_counts(COUNTERS)
+    rr = sched.engine.rr.counter
+    sched.engine.close()
+    return api, tot, {"wall": wall, "counters": cnt, "spans": spans,
+                      "launches": launches, "rr": rr}
+
+
+def _placed(api):
+    return {p.key(): p.node_name for p in api.list("Pod")[0]}
+
+
+def daemon_and_policy(mods, card, device=None):
+    """Phase 8 on `device` (None: the card), 8d against the CPU. Returns
+    (launches summed over 8a-8c, max abs err per kernel on this path)."""
+    import tempfile
+    (hollow, types, workloads, api_mod, daemon, Scheduler, policy_mod,
+     kernels, COUNTERS) = mods
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    wmods = (hollow, types, workloads)
+    dmods = (hollow, api_mod, daemon, kernels, COUNTERS)
+    smods = (hollow, api_mod, Scheduler, kernels, COUNTERS)
+    policy = policy_mod.parse_policy(json.dumps(PHASE8_POLICY))
+
+    def take(tag, launches, spy):
+        cap_shapes, inc_shapes = spy.shapes()
+        log(f"{tag} launches {launches}, shapes (capacity (C, N, R)) "
+            f"{cap_shapes}, (incidence (M, N, L)) {inc_shapes}")
+        for k in ("capacity_fit", "incidence_matmul"):
+            if launches[k] == 0:
+                fail(f"{tag}: no {k} launch")
+        for k, v in spy.check(tag).items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        policy_path = os.path.join(tmp, "policy.json")
+        with open(policy_path, "w") as f:
+            json.dump(PHASE8_POLICY, f)
+        # 8a: the daemon at full width, failover included
+        spy = OperandSpy(kernels)
+        api, rep = daemon_failover(
+            dmods, policy_world(wmods, N_NODES, N_PODS, True),
+            policy_path, device=device, spy=spy)
+        audit_policy(api, "8a daemon", N_PODS)
+        del api
+        if (rep["holder"], rep["transitions"]) != ("daemon-b", 1):
+            fail(f"8a: lease {rep['holder']} / {rep['transitions']}")
+        log(f"8a daemon {N_NODES} x {N_PODS}: A's round "
+            f"{json.dumps(rep['round_a'])} in {rep['wall_a']:.3f} s; B "
+            f"(after the crash and the lease) {len(rep['rounds_b'])} "
+            f"steps in {rep['wall_b']:.3f} s, first "
+            f"{json.dumps(rep['rounds_b'][0])}; lease holder "
+            f"{rep['holder']}, transitions {rep['transitions']} [{card}]")
+        log(f"8a counters {json.dumps(rep['counters'])}")
+        log(f"8a spans (ms) {json.dumps(rep['spans'])}")
+        take("8a daemon", rep["launches"], spy)
+        # 8b: the pipelined drain of the same store contents
+        spy = OperandSpy(kernels)
+        api, tot, rep = policy_drain(
+            smods, policy_world(wmods, N_NODES, N_PODS, True), policy,
+            device=device, spy=spy)
+        audit_policy(api, "8b pipelined", N_PODS)
+        del api
+        cnt = rep["counters"]
+        if cnt["stream.chunk_flush"] != 0:
+            fail(f"8b: {cnt['stream.chunk_flush']} pipeline flushes")
+        n_exact = N_PODS // 300
+        if cnt["engine.wave_host_rows"] < n_exact \
+                or cnt["engine.wave_host_tail"] < n_exact:
+            fail(f"8b: host rows {cnt['engine.wave_host_rows']}, tail "
+                 f"{cnt['engine.wave_host_tail']} (want >= {n_exact})")
+        log(f"8b pipelined {N_NODES} x {N_PODS} with the Policy: wall "
+            f"{rep['wall']:.3f} s, totals {json.dumps(tot)} [{card}]")
+        log(f"8b counters {json.dumps(cnt)} (Policy fence requeues "
+            f"{cnt['engine.policy_fence_requeues']}, host-check fence "
+            f"requeues {cnt['engine.hostcheck_fence_requeues']})")
+        log(f"8b spans (ms) {json.dumps(rep['spans'])}")
+        take("8b pipelined", rep["launches"], spy)
+        # 8c: the strict classic round (depth cut: two incidence launches
+        # per pod in the per-pod scan)
+        n_strict = 2000
+        spy = OperandSpy(kernels)
+        api, tot, rep = policy_drain(
+            smods, (hollow.hollow_nodes(N_NODES),
+                    hollow.mixed_affinity_pods(n_strict, seed=22), []),
+            None, device=device, spy=spy, batch_mode="strict")
+        bound, unbound = audit_store(api, "mixed_affinity", n_strict)
+        if unbound:
+            fail(f"8c: {unbound} pods unbound")
+        del api
+        log(f"8c strict {N_NODES} x {n_strict}: wall {rep['wall']:.3f} s "
+            f"({1e3 * rep['wall'] / n_strict:.2f} ms a pod), totals "
+            f"{json.dumps(tot)}, spans (ms) {json.dumps(rep['spans'])} "
+            f"[{card}]")
+        take("8c strict", rep["launches"], spy)
+        # 8d: card == CPU at reduced sizes (coupled pods unpinned)
+        runs = {}
+        for dev in (device, "cpu"):
+            api, rep = daemon_failover(
+                dmods, policy_world(wmods, 512, 3000, False), policy_path,
+                device=dev)
+            runs[("classic", dev)] = (_placed(api), rep["rr"])
+            api, tot, rep = policy_drain(
+                smods, policy_world(wmods, 512, 3000, False), policy,
+                device=dev)
+            runs[("pipelined", dev)] = (_placed(api), rep["rr"], tot)
+            api, tot, rep = policy_drain(
+                smods, (hollow.hollow_nodes(256),
+                        hollow.mixed_affinity_pods(600, seed=23), []),
+                None, device=dev, batch_mode="strict")
+            runs[("strict", dev)] = (_placed(api), rep["rr"], tot)
+        for path in ("classic", "pipelined", "strict"):
+            got, want = runs[(path, device)], runs[(path, "cpu")]
+            diff = sum(got[0][k] != v for k, v in want[0].items())
+            if diff or got[1:] != want[1:]:
+                fail(f"8d {path}: card != CPU ({diff} placements; "
+                     f"{got[1:]} vs {want[1:]})")
+            log(f"8d {path}: card == CPU ({len(want[0])} pods, "
+                f"{sum(1 for v in want[0].values() if v)} bound, RR "
+                f"counter {want[1]})")
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return total, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1461,14 +1859,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from kubernetes_tpu_torch.api import serde, types
+        from kubernetes_tpu_torch.api import policy as policy_mod
+        from kubernetes_tpu_torch.api import serde, types, workloads
         from kubernetes_tpu_torch.engine.scheduler import Scheduler
         from kubernetes_tpu_torch.engine.scheduler_engine import (
             SchedulingEngine, evaluate_pod)
         from kubernetes_tpu_torch.models import hollow
         from kubernetes_tpu_torch.ops import affinity, kernels
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
-        from kubernetes_tpu_torch.server import apiserver_lite, extender
+        from kubernetes_tpu_torch.server import (apiserver_lite, daemon,
+                                                 extender)
         from kubernetes_tpu_torch.state.classes import ClassBatch
         from kubernetes_tpu_torch.testing import churn
         from kubernetes_tpu_torch.utils.trace import COUNTERS
@@ -1534,7 +1934,14 @@ def main() -> int:
     for k, v in err_ext.items():
         max_err[k] = max(max_err[k], v)
 
-    # 8. summary
+    # 8. the daemon and the Policy
+    launches_p8, err_p8 = daemon_and_policy(
+        (hollow, types, workloads, apiserver_lite, daemon, Scheduler,
+         policy_mod, kernels, COUNTERS), card)
+    for k, v in err_p8.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 9. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -1545,7 +1952,8 @@ def main() -> int:
             "source": f"kubernetes_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (launches_drain[name] + launches_eval[name]
-                         + launches_pipe[name] + launches_ext[name]),
+                         + launches_pipe[name] + launches_ext[name]
+                         + launches_p8[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1557,7 +1965,8 @@ def main() -> int:
                if k in ("ms", "device_ms", "cold_ms", "plain_ms",
                         "library_ms", "bound_ms", "shape")}})
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
-        f"pipelined drains {launches_pipe}, extender {launches_ext}")
+        f"pipelined drains {launches_pipe}, extender {launches_ext}, "
+        f"daemon and Policy {launches_p8}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

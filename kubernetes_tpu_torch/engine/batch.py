@@ -149,6 +149,10 @@ def _batch_pre(pods: Arrays, nodes: Arrays, priorities
         if name in _STATIC_PRIORITIES:
             static_score = static_score + \
                 prio.PRIORITY_REGISTRY[name](pods, nodes, None) * weight
+    if "policy_score" in pods:
+        # Policy-configured NodeLabel / ServiceAntiAffinity priorities
+        # (weights pre-folded; ops/policy_algos.py)
+        static_score = static_score + pods["policy_score"]
     return static_fit, tt_cnt, na_cnt, static_score
 
 

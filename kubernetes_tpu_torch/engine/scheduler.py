@@ -29,9 +29,9 @@ Two drain modes:
   (a conflict-round loop), and the fence re-validates topology occupancy
   the same way it re-validates capacity.
 
-What later slices of the port bring raises NotImplementedError naming the
-slice: a Policy (ROADMAP §1.2), gangs and PodPriority preemption (§1.4),
-stream()'s fast lane (§1.4) and a mesh (§1.5).
+What later slices of the port bring raises NotImplementedError naming its
+ROADMAP item by title: gangs, PodPriority preemption, stream()'s fast lane
+and a mesh.
 
 Error paths preserved:
 
@@ -59,7 +59,6 @@ from kubernetes_tpu_torch.engine import gang as gangmod
 from kubernetes_tpu_torch.engine.queue import SchedulingQueue
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     GANG_SLICE,
-    POLICY_SLICE,
     PlacementResult,
     SchedulingEngine,
 )
@@ -71,6 +70,7 @@ from kubernetes_tpu_torch.observability.recorder import RECORDER
 from kubernetes_tpu_torch.observability.registry import TelemetryRegistry
 from kubernetes_tpu_torch.observability.slo import SLO
 from kubernetes_tpu_torch.ops import priorities as prio
+from kubernetes_tpu_torch.ops.policy_algos import algorithms_from_policy
 from kubernetes_tpu_torch.server.apiserver_lite import (
     ApiServerLite,
     TooOldResourceVersion,
@@ -82,9 +82,11 @@ from kubernetes_tpu_torch.utils.trace import SCHEDULE_TRACE_THRESHOLD_S, Trace
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 PREEMPT_SLICE = ("PodPriority preemption (engine/preemption.py, "
-                 "engine/preempt_wave.py), ROADMAP §1.4 of the port")
+                 "engine/preempt_wave.py), ROADMAP §1 'PodPriority "
+                 "preemption' of the port")
 MESH_SLICE = ("mesh sharding across several cards (parallel/mesh.py, "
-              "_waves_loop_spmd), ROADMAP §1.5 of the port")
+              "_waves_loop_spmd), ROADMAP §1 'Node-axis sharding across "
+              "several cards' of the port")
 
 
 def _queue_copy(pod: Pod) -> Pod:
@@ -110,8 +112,6 @@ class Scheduler:
                  policy=None,
                  now=time.monotonic,
                  mesh=None, device=None):
-        if policy is not None:
-            raise NotImplementedError(POLICY_SLICE)
         if mesh is not None:
             raise NotImplementedError(MESH_SLICE)
         self.api = api
@@ -125,9 +125,17 @@ class Scheduler:
         # Service/RC/RS/StatefulSet mirror for spreading & service affinity —
         # the extra informers of factory.go:120-140
         self._workloads: Dict[str, object] = {}
+        # --policy-config-file (factory.go:619 CreateFromConfig): priority
+        # set + parameterized algorithm args come from the Policy when given
+        self._policy_algos = None
+        if policy is not None:
+            kernel_prios, self._policy_algos = algorithms_from_policy(policy)
+            if policy.priorities is not None:
+                priorities = kernel_prios
         self.engine = SchedulingEngine(
             self.cache, priorities=priorities, device=device,
-            workloads_provider=lambda: list(self._workloads.values()))
+            workloads_provider=lambda: list(self._workloads.values()),
+            policy_algos=self._policy_algos)
         # this Scheduler owns its cache exclusively and routes every
         # mutation through the engine's dirty notes, so refreshes may take
         # the targeted changed_hint path instead of walking all N nodes
@@ -1155,7 +1163,8 @@ class Scheduler:
         self.engine = SchedulingEngine(
             self.cache, priorities=self.engine.priorities,
             device=self.device,
-            workloads_provider=lambda: list(self._workloads.values()))
+            workloads_provider=lambda: list(self._workloads.values()),
+            policy_algos=self._policy_algos)
         self.engine.track_dirty = True
         self.engine.wave_pad_floor = pad_floor
         self.queue = SchedulingQueue(now=self._now)

@@ -16,9 +16,11 @@ PyTorch port of kubernetes_tpu/engine/scheduler_engine.py, on one device
   the engine's worker thread WITHOUT waiting for it and returns a
   WaveHandle; harvest joins the job, re-validates the blind wave's
   placements against current occupancy (the capacity fence and its
-  topology mirror, the liveness fence), finishes strict-tail pods via the
-  conflict-round loop (waves.tail_rounds_loop) or the per-pod scan,
-  assumes the survivors columnar and hands conflicts back for requeue.
+  topology mirror, the host-check and Policy re-checks, the liveness
+  fence), finishes strict-tail pods via the conflict-round loop
+  (waves.tail_rounds_loop) or the per-pod scan, assumes the survivors
+  columnar, places host-exact rows with the exact oracle tail and hands
+  conflicts back for requeue.
 
 The reference overlaps device and host through JAX's asynchronous
 dispatch. Here the wave loop (one host check per wave) runs on a worker
@@ -30,13 +32,9 @@ behind the next wave's work. Every host buffer a job reads is uploaded as
 a copy (convert.tensor_from_numpy), since the harvest folds commits into
 them in place while a later wave may still run.
 
-What later slices of the port bring raises NotImplementedError naming the
-slice, so nothing is ever scheduled silently by a path that is not there:
-the Policy algorithms (an active ``policy_algos``) and classes routed to
-the exact host oracle on the wave path and the synchronous ``schedule``
-(ROADMAP §1.2), gangs on the wave path (§1.4), and live inter-pod
-affinity on the synchronous ``schedule`` path (§1.2, the reference's
-``_run_wave``).
+Gangs on the wave path raise NotImplementedError naming their ROADMAP
+item (a later slice of the port), so nothing is ever scheduled silently by
+a path that is not there.
 """
 
 from __future__ import annotations
@@ -64,9 +62,15 @@ from kubernetes_tpu_torch.observability import recorder as flightrec
 from kubernetes_tpu_torch.observability.podtrace import TRACER
 from kubernetes_tpu_torch.observability.recorder import RECORDER
 from kubernetes_tpu_torch.ops import affinity as aff_ops
+from kubernetes_tpu_torch.ops import oracle
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prio
-from kubernetes_tpu_torch.ops.oracle_ext import _own_terms, term_matches_pod
+from kubernetes_tpu_torch.ops.oracle_ext import (
+    AffinityMeta,
+    SchedulingContext,
+    _own_terms,
+    term_matches_pod,
+)
 from kubernetes_tpu_torch.ops.predicates import bucket, int_matmul
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.classes import ClassBatch, pod_class_key
@@ -78,29 +82,12 @@ from kubernetes_tpu_torch.state.snapshot import (
 from kubernetes_tpu_torch.state.volumes import VolumeContext
 from kubernetes_tpu_torch.utils.trace import COUNTERS, timed_span
 
-HOST_ORACLE_SLICE = ("the host-oracle routes of the wave path and of the "
-                     "synchronous schedule() (the host-exact rows and their "
-                     "oracle tail), ROADMAP §1.2 of the port")
-POLICY_SLICE = ("Policy algorithms (ops/policy_algos), ROADMAP §1.2 of the "
-                "port")
-SYNC_AFFINITY_SLICE = ("inter-pod affinity and selector spreading on the "
-                       "synchronous schedule() path (the reference's "
-                       "_run_wave), ROADMAP §1.2 of the port; the pipelined "
-                       "drain (dispatch_waves) takes them")
 GANG_SLICE = ("gangs on the wave path (engine/gang.py through "
-              "dispatch_waves), ROADMAP §1.4 of the port")
+              "dispatch_waves), ROADMAP §1 'Gangs on both drain paths' of "
+              "the port")
 # hardPodAffinitySymmetricWeight, the reference's default
 HARD_POD_AFFINITY_WEIGHT = 1
 I32 = torch.int32
-
-
-class RoundRobin:
-    """selectHost's lastNodeIndex counter (generic_scheduler.go:144-160),
-    as the reference's ops/oracle.RoundRobin: ties among max-score nodes
-    are broken round-robin in ascending node-index order."""
-
-    def __init__(self):
-        self.counter = 0
 
 
 class PlacementResult:
@@ -358,11 +345,6 @@ def _oracle_eval(pod, infos, snap, priorities, workloads, hard_weight,
                  volume_ctx, policy_algos):
     """Exact object-level /filter + /prioritize (the reference's per-pod
     predicate/priority calls, no tensorization)."""
-    from kubernetes_tpu_torch.ops import oracle
-    from kubernetes_tpu_torch.ops.oracle_ext import (
-        AffinityMeta,
-        SchedulingContext,
-    )
     ctx = SchedulingContext(infos, list(workloads),
                             hard_pod_affinity_weight=hard_weight,
                             volume_ctx=volume_ctx,
@@ -472,12 +454,6 @@ def _owned(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
 
 
-def _check_policy(policy_algos) -> None:
-    if policy_algos is not None and policy_algos.active:
-        raise NotImplementedError(
-            f"an active policy_algos in the verdict: {POLICY_SLICE}")
-
-
 def evaluate_pod(pod: Pod, infos, snap: ClusterSnapshot,
                  priorities: Tuple[Tuple[str, int], ...],
                  workloads: Sequence = (), hard_weight: int = 1,
@@ -496,9 +472,9 @@ def evaluate_pod(pod: Pod, infos, snap: ClusterSnapshot,
     `snap` must already be refreshed against `infos`. Routes to the exact
     host oracle when the pod's features over-approximate on device
     (needs_host_check / affinity slot overflow) or would grow a snapshot
-    vocab; the oracle route scores int64 over the filtered set, the device
-    route int32 over every node (never differing on fit verdicts). An
-    active `policy_algos` raises NotImplementedError (ROADMAP §1.2).
+    vocab, and always under an active `policy_algos`; the oracle route
+    scores int64 over the filtered set, the device route int32 over every
+    node (never differing on fit verdicts).
 
     The warm fast lane (eval_cache given) is layered:
       1. result memo — same class at the same snapshot version returns the
@@ -512,7 +488,6 @@ def evaluate_pod(pod: Pod, infos, snap: ClusterSnapshot,
          node_arrays(snap) uploads fresh when absent).
     """
     dev = resolve_device(device)
-    _check_policy(policy_algos)
     w_ip = sum(w for nm, w in priorities if nm == "InterPodAffinityPriority")
     w_sp = sum(w for nm, w in priorities if nm == "SelectorSpreadPriority")
 
@@ -597,15 +572,17 @@ def _eval_dispatch(pod, infos, snap, priorities, workloads, hard_weight,
                    volume_ctx, policy_algos, enc: "_EncodedClass",
                    device_nodes_provider, w_ip: int, w_sp: int, dev):
     """Shared routing tail of evaluate_pod: exact-oracle gate
-    (needs_host_check / slot overflow), then ONE fused evaluation over the
-    caller's device-resident node tensors. Both the warm fast lane and the
-    uncached args-mode path end here, so the dispatch contract cannot
-    drift between them."""
+    (needs_host_check / slot overflow / Policy algorithms), then ONE fused
+    evaluation over the caller's device-resident node tensors. Both the
+    warm fast lane and the uncached args-mode path end here, so the
+    dispatch contract cannot drift between them."""
     batch, adata = enc.batch, enc.adata
     if batch.reps_batch.needs_host_check[0] \
-            or (adata is not None and adata.overflow[0]):
-        # exact object-level path (same routing as the reference's
-        # SchedulingEngine.schedule)
+            or (adata is not None and adata.overflow[0]) \
+            or (policy_algos is not None and policy_algos.active):
+        # exact object-level path (same routing as SchedulingEngine.schedule;
+        # Policy-configured algorithms always evaluate exactly here — one
+        # pod per extender call keeps the oracle cheap)
         with timed_span("extender.oracle_eval"):
             return _oracle_eval(pod, infos, snap, priorities, workloads,
                                 hard_weight, volume_ctx, policy_algos)
@@ -651,8 +628,8 @@ def evaluate_pods_batch(pods: Sequence[Pod], infos, snap: ClusterSnapshot,
       - several classes    -> ONE ClassBatch over the class reps, class
         axis padded to the bucket ladder (pod_arrays_bucketed rows=), one
         _fused_eval_batch, rows scattered per request; host-check /
-        slot-overflow classes drop to the oracle per class exactly as
-        _eval_dispatch routes the single pod.
+        slot-overflow / Policy classes drop to the oracle per class exactly
+        as _eval_dispatch routes the single pod.
 
     Every class's (m, s) enters the result memo, so followers of the same
     coalescing window and later requests hit without dispatching. `snap`
@@ -661,7 +638,6 @@ def evaluate_pods_batch(pods: Sequence[Pod], infos, snap: ClusterSnapshot,
     from collections import OrderedDict
 
     dev = resolve_device(device)
-    _check_policy(policy_algos)
     n = len(pods)
     if eval_cache is None:
         # no cache owner: per-request evaluation is the only honest shape
@@ -709,9 +685,10 @@ def evaluate_pods_batch(pods: Sequence[Pod], infos, snap: ClusterSnapshot,
     reps: List[Pod] = [rep_of[ck] for ck in order]
     if not uniq:
         return results  # type: ignore[return-value]
-    if len(uniq) == 1:
+    if len(uniq) == 1 or (policy_algos is not None and policy_algos.active):
         # one class (the compat-storm common case) rides the single-pod
-        # warm lane — encoded-class LRU, result memo, exact span counters
+        # warm lane — encoded-class LRU, result memo, exact span counters;
+        # Policy-configured algorithms always evaluate per pod exactly
         for ckey, members in uniq.items():
             out = evaluate_pod(pods[members[0]], infos, snap, priorities,
                                workloads, hard_weight, volume_ctx,
@@ -867,9 +844,7 @@ def _aff_tail_arrays(adata, snap, cols: np.ndarray, device):
 
 
 class _WaveEncoding:
-    """Device-resident class encoding reused across pipelined drain chunks
-    (a copy of the reference's, minus the host-check and Policy columns,
-    which the port refuses).
+    """Device-resident class encoding reused across pipelined drain chunks.
 
     A 30k-pod storm arrives as a few pipelined chunks of the SAME handful
     of spec classes; this caches the padded class tensors keyed on
@@ -892,7 +867,8 @@ class _WaveEncoding:
                  "tail_cols", "aff_wave_dev", "aff_tail_dev",
                  "anti_terms", "aff_terms", "foreign_forbid",
                  "foreign_forbid_dom", "aff_patch_dirty",
-                 "host_exact", "spread_on", "wkey")
+                 "host_exact", "host_static", "policy_on", "spread_on",
+                 "wkey", "has_static_cols")
 
     def __init__(self, vocab_gen, key_index, reps, cls_arr, num_classes,
                  c_pad, req_rows, special, derived, ports_max,
@@ -900,7 +876,8 @@ class _WaveEncoding:
                  aff_seq=0, aff_wave_dev=None,
                  aff_tail_dev=None, key_node=None, static_forbid_hit=None,
                  tail_cols=None, n_pad=0, labels_gen=0,
-                 host_exact=None, spread_on=False, wkey=()):
+                 host_exact=None, host_static=None, policy_on=False,
+                 spread_on=False, wkey=(), has_static_cols=False):
         self.vocab_gen = vocab_gen
         self.labels_gen = labels_gen  # snapshot.labels_gen at build: the
         # topology views (key_node/static_forbid_hit/labels_aff) bake
@@ -919,14 +896,28 @@ class _WaveEncoding:
         self.prio_on = prio_on        # preferred-affinity scoring live
         self.wave_strict = adata.wave_strict if adata is not None \
             else np.zeros(c_pad, dtype=bool)
-        # classes for the exact host oracle (needs_host_check, affinity
-        # slot overflow): dispatch refuses a chunk carrying one
+        # host-check / Policy absorption: host_exact classes ride the wave
+        # as inactive padding-class rows and place at the harvest's exact
+        # oracle tail (live-NodeInfo ports, score-affecting preference
+        # overflow, Policy order-dependence, affinity slot overflow);
+        # host_static classes carry a precomputed exact label-pure fit
+        # column (cls_arr["host_fit"]) and place on the wave itself.
+        # Neither shape flushes the pipeline.
         self.host_exact = host_exact if host_exact is not None \
             else np.zeros(c_pad, dtype=bool)
+        self.host_static = host_static if host_static is not None \
+            else np.zeros(c_pad, dtype=bool)
+        self.policy_on = policy_on    # policy_fit/policy_score baked
         self.spread_on = spread_on    # SelectorSpread riding frozen score
         # workload-set identity at build (the scheduler replaces workload
-        # objects on watch events, so `is`-comparison detects any change)
+        # objects on watch events, so `is`-comparison detects any change);
+        # compared only when workloads are placement-relevant (policy or
+        # spread weight) — see _wave_encoding
         self.wkey = wkey
+        # host/policy static columns bake LABEL CONTENT and workload
+        # state; a labels_gen move invalidates the whole encoding (no
+        # patch path for these columns)
+        self.has_static_cols = has_static_cols
         self.aff_seq = aff_seq        # expected cache.aff_seq (own folds in)
         # tensor bundles: the wave loop's per-node form and the strict
         # tail's projected-domain form
@@ -977,10 +968,12 @@ class WaveHandle:
 
     __slots__ = ("pods", "pc", "enc", "job", "nodes", "blind", "pop_ts",
                  "dispatch_ts", "pad_floor", "strict_idx", "wave_id",
-                 "packed_h", "state_out", "committed_out", "counter_out")
+                 "host_idx", "packed_h", "state_out", "committed_out",
+                 "counter_out")
 
     def __init__(self, pods, pc, enc, job, nodes, blind, pop_ts,
-                 dispatch_ts, pad_floor=0, strict_idx=None, wave_id=-1):
+                 dispatch_ts, pad_floor=0, strict_idx=None, wave_id=-1,
+                 host_idx=None):
         self.pad_floor = pad_floor
         self.pods = pods
         self.pc = pc                  # host int32 [n] class index per pod
@@ -993,6 +986,10 @@ class WaveHandle:
         # pods routed to the seeded strict tail (wave_strict classes) —
         # inactive on the wave path, placed by harvest's tail
         self.strict_idx = strict_idx if strict_idx is not None \
+            else np.empty(0, dtype=np.int64)
+        # host_exact rows (padding class on the device): placed by the
+        # harvest's exact oracle tail after the fence
+        self.host_idx = host_idx if host_idx is not None \
             else np.empty(0, dtype=np.int64)
         # flight-recorder wave id: joins this wave's dispatch / harvest /
         # bind-flush events; -1 when the recorder was off at dispatch
@@ -1108,15 +1105,20 @@ class SchedulingEngine:
     def __init__(self, cache: SchedulerCache,
                  priorities: Tuple[Tuple[str, int], ...] =
                  prio.DEFAULT_PRIORITIES, device=None,
-                 workloads_provider=None):
+                 workloads_provider=None, policy_algos=None):
         self.device = resolve_device(device)
         self.cache = cache
         self.priorities = priorities
+        # Policy-configured parameterized algorithms (ServiceAffinity,
+        # NodeLabelPresence, NodeLabel, ServiceAntiAffinity) — the
+        # CreateFromConfig arguments (ops/policy_algos.py)
+        self.policy_algos = policy_algos
         self.snapshot = ClusterSnapshot()
         # PV/PVC mirror (the pvInfo/pvcInfo listers of factory.go); the
         # owner (Scheduler) mutates it and bumps .version on watch events
         self.volume_ctx = VolumeContext()
-        self.rr = RoundRobin()  # shared counter (uint32 on the device)
+        self.rr = oracle.RoundRobin()  # shared counter, device + oracle
+        # paths (uint32 on the device)
         # Service/RC/RS/SS objects for spreading — the factory's extra
         # informers (factory.go:120-140)
         self.workloads_provider = workloads_provider or (lambda: [])
@@ -1171,10 +1173,15 @@ class SchedulingEngine:
                  mode: str = "strict") -> List[PlacementResult]:
         """Schedule a batch. Returns one PlacementResult per pod, in input
         order. When assume=True, successful placements are assumed into
-        the cache with pod.node_name set.
+        the cache with pod.node_name set (the caller binds asynchronously).
 
-        mode="strict" reproduces the reference's sequential scheduleOne;
-        mode="wave" is the wave-parallel throughput mode (engine/waves.py).
+        mode="strict" reproduces the reference's sequential scheduleOne
+        (engine/batch.py); mode="wave" is the wave-parallel throughput mode
+        (engine/waves.py) with identical predicate/priority integer
+        semantics but batch-defined tie-spreading. Classes the device
+        encoding over-approximates (needs_host_check, affinity slot
+        overflow, the Policy's service-coupled classes) take the exact
+        host oracle after the device placements, in FIFO order.
         """
         if mode not in ("strict", "wave"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -1183,95 +1190,147 @@ class SchedulingEngine:
         with timed_span("engine.refresh"):
             infos = self._refresh()
         with timed_span("engine.encode"):
-            batch, c_pad = self._encode(pods, infos)
-        kernel_priorities = self._kernel_priorities()
+            all_pairs, aff_pairs = aff_ops.collect_pod_pairs(infos)
+            # topology keys referenced by ANY affinity term (pending or
+            # existing) must be in the label vocab before the label matrix
+            # is finalized (ClassBatch next), or a key only an existing
+            # pod's anti-affinity mentions has no domain columns
+            aff_ops.intern_topology_pairs(self.snapshot, pods, aff_pairs)
+            batch = ClassBatch(pods, self.snapshot)
+            c_pad = bucket(batch.num_classes + 1)
+            adata = aff_ops.AffinityData(batch.reps, self.snapshot,
+                                         all_pairs, aff_pairs,
+                                         self.workloads_provider(),
+                                         self.hard_pod_affinity_weight,
+                                         c_pad=c_pad)
+            for c in np.nonzero(adata.overflow[:batch.num_classes])[0]:
+                batch.mark_host_check_class(int(c))
+            policy_active = self.policy_algos is not None \
+                and self.policy_algos.active
+            workloads_now = None
+            if policy_active:
+                workloads_now = self.workloads_provider()
+                # service-coupled classes are order-dependent in-batch
+                # (the reference's pod lister is the scheduler cache) ->
+                # host path
+                for c in np.nonzero(self.policy_algos.needs_host(
+                        batch.reps, workloads_now))[0]:
+                    batch.mark_host_check_class(int(c))
+        nhc = batch.reps_batch.needs_host_check[batch.pod_class]
+        if mode == "strict" and assume and nhc.any() and not nhc.all():
+            # exact scheduleOne sequencing across the host/device boundary:
+            # a host-path pod between two device pods must see the first's
+            # commit and be seen by the second's (scheduler.go:253 is one
+            # strict FIFO). Maximal same-path runs go in order, each
+            # through the whole pipeline against the updated cache; flags
+            # are class-deterministic, so each run is homogeneous and the
+            # recursion ends after one level.
+            results: List[PlacementResult] = []
+            i = 0
+            while i < len(pods):
+                j = i + 1
+                while j < len(pods) and nhc[j] == nhc[i]:
+                    j += 1
+                results.extend(self.schedule(list(pods[i:j]), assume=True,
+                                             mode=mode))
+                i = j
+            return results
+
+        policy_arrays = None
+        if policy_active:
+            policy_arrays = self.policy_algos.static_class_arrays(
+                batch.reps, self.snapshot, workloads_now, all_pairs, c_pad,
+                skip=batch.reps_batch.needs_host_check[:batch.num_classes])
+        aff_mode, weights = _aff_mode(adata, self.priorities)
+        dev = self.device
         with timed_span("engine.upload"):
-            nodes = self._nodes_on_device(port_words=self._port_words(batch))
-            cls_arr = preds.pod_arrays_padded(batch.reps_batch, c_pad,
-                                              self.device)
-        pf = len(pods)
-        pc_fast = np.full(bucket(pf), batch.num_classes, dtype=np.int32)
-        pc_fast[:pf] = batch.pod_class
-        state = NodeState(nodes["requested"], nodes["nonzero"],
-                          nodes["pod_count"], nodes["port_bitmap"],
-                          nodes["vol_present"], nodes["vol_rw"],
-                          nodes["pd_present"], nodes["pd_counts"])
-        with timed_span("engine.place"):
-            if mode == "wave":
-                stats: Dict[str, int] = {}
-                selected, fit_counts, _, rr_end = waves.place_waves(
-                    cls_arr, nodes, state, pc_fast, self.rr.counter,
-                    kernel_priorities, stats=stats)
-                self.last_wave_stats = stats
-            else:
-                sel_d, fc_d, _, rr_d = gather_place_batch(
-                    cls_arr, torch.from_numpy(pc_fast).to(self.device),
-                    nodes, state,
-                    torch.tensor(self.rr.counter & U32_MASK,
-                                 dtype=torch.int64, device=self.device),
-                    kernel_priorities)
-                selected = sel_d.cpu().numpy()
-                fit_counts = fc_d.cpu().numpy()
-                rr_end = int(rr_d)
-        self.rr.counter = int(rr_end)
-        with timed_span("engine.assume"):
-            return self._results(pods, batch, pc_fast, selected, fit_counts,
-                                 assume)
+            aff_arrays = adata.device_arrays(dev) if any(aff_mode) else None
+            kernel_priorities = self.priorities if aff_arrays is not None \
+                else self._kernel_priorities()
+            nodes = self._nodes_on_device(
+                port_words=self._port_words(batch))
+        fast_idx = np.nonzero(~nhc)[0]
+        slow_idx = np.nonzero(nhc)[0].tolist()
+        results: List[Optional[PlacementResult]] = [None] * len(pods)
 
-    def _encode(self, pods: Sequence[Pod], infos) -> Tuple[ClassBatch, int]:
-        """Equivalence classes of the batch (class axis padded to c_pad),
-        refusing what later slices bring."""
-        all_pairs, aff_pairs = aff_ops.collect_pod_pairs(infos)
-        # topology keys referenced by ANY affinity term must be in the label
-        # vocab before the label matrix is finalized (ClassBatch next)
-        aff_ops.intern_topology_pairs(self.snapshot, pods, aff_pairs)
-        batch = ClassBatch(pods, self.snapshot)
-        c_pad = bucket(batch.num_classes + 1)
-        adata = aff_ops.AffinityData(batch.reps, self.snapshot, all_pairs,
-                                     aff_pairs, self.workloads_provider(),
-                                     self.hard_pod_affinity_weight,
-                                     c_pad=c_pad)
-        nc = batch.num_classes
-        if batch.reps_batch.needs_host_check[:nc].any() \
-                or adata.overflow[:nc].any():
-            raise NotImplementedError(
-                f"batch has classes for the exact host oracle: "
-                f"{HOST_ORACLE_SLICE}")
-        aff_mode, _ = _aff_mode(adata, self.priorities)
-        if any(aff_mode) or adata.serialize[:nc].any():
-            raise NotImplementedError(f"batch needs {SYNC_AFFINITY_SLICE}")
-        return batch, c_pad
+        if len(fast_idx):
+            # the class axis and the pod axis pad to power-of-2 buckets;
+            # padding classes are `impossible` (fit nothing, commit
+            # nothing, no RR ticks) and padding pods map to the first one
+            with timed_span("engine.upload"):
+                cls_arr = preds.pod_arrays_padded(batch.reps_batch, c_pad,
+                                                  dev)
+                if policy_arrays is not None:
+                    # host columns of the Policy algorithms: upload copies
+                    pfit, pscore = policy_arrays
+                    if pfit is not None:
+                        cls_arr["policy_fit"] = tensor_from_numpy(pfit, dev)
+                    if pscore is not None:
+                        cls_arr["policy_score"] = tensor_from_numpy(pscore,
+                                                                    dev)
+            pf = len(fast_idx)
+            pc_fast = np.full(bucket(pf), batch.num_classes, dtype=np.int32)
+            pc_fast[:pf] = batch.pod_class[fast_idx]
+            state = NodeState(nodes["requested"], nodes["nonzero"],
+                              nodes["pod_count"], nodes["port_bitmap"],
+                              nodes["vol_present"], nodes["vol_rw"],
+                              nodes["pd_present"], nodes["pd_counts"])
+            with timed_span("engine.place"):
+                if mode == "wave":
+                    selected, fit_counts, rr_end = self._run_wave(
+                        batch, adata, cls_arr, nodes, state, pc_fast, pf,
+                        aff_arrays, aff_mode, kernel_priorities, weights)
+                else:
+                    sel_d, fc_d, _, rr_d = gather_place_batch(
+                        cls_arr, tensor_from_numpy(pc_fast, dev), nodes,
+                        state,
+                        torch.tensor(self.rr.counter & U32_MASK,
+                                     dtype=torch.int64, device=dev),
+                        kernel_priorities, aff=aff_arrays,
+                        aff_mode=aff_mode)
+                    # the synchronous engine's result fetch: schedule()
+                    # owes its caller host placements
+                    selected = sel_d.cpu().numpy()[:pf]
+                    fit_counts = fc_d.cpu().numpy()[:pf]
+                    rr_end = int(rr_d)
+            self.rr.counter = int(rr_end)
+            with timed_span("engine.assume"):
+                self._fast_results(pods, batch, fast_idx, pc_fast, selected,
+                                   fit_counts, assume, results)
 
-    def _port_words(self, batch: ClassBatch) -> int:
-        """Port-bitmap words to ship: the highest word any node uses or any
-        batch pod requests, power-of-2 bucketed."""
-        max_words = self.snapshot.port_words_used()
-        if np.any(batch.reps_batch.ports >= 0):
-            max_words = max(max_words,
-                            int(batch.reps_batch.ports.max()) // 32 + 1)
-        return bucket(max(max_words, 1), lo=1)
+        # exact host path for over-approximated pods, AFTER the device
+        # placements so they see committed capacity (FIFO among themselves)
+        if slow_idx:
+            COUNTERS.inc("engine.classic_host_tail", len(slow_idx))
+            with timed_span("engine.host_tail"):
+                host_nodes = self._oracle_tail(pods, slow_idx, assume)
+            for i, name in zip(slow_idx, host_nodes):
+                results[i] = PlacementResult(pods[i], name,
+                                             1 if name else 0)
+        return results  # type: ignore[return-value]
 
-    def _results(self, pods, batch, pc_fast, selected, fit_counts,
-                 assume: bool) -> List[PlacementResult]:
-        """Placement results in input order; assumes the placed pods into
-        the cache (one bulk call) when `assume`."""
+    def _fast_results(self, pods, batch, fast_idx, pc_fast, selected,
+                      fit_counts, assume: bool, results) -> None:
+        """Fill `results` for the device-placed pods; assumes the placed
+        ones into the cache (one bulk call) when `assume`."""
         names = self.snapshot.node_names
-        results: List[PlacementResult] = []
         placements = []
-        pf = len(pods)
-        sel_l = selected[:pf].tolist()
-        fc_l = fit_counts[:pf].tolist()
+        # plain-int lists: numpy scalar indexing in a 30k-iteration loop
+        # costs ~3x a list walk
+        sel_l = np.asarray(selected).tolist()
+        fc_l = np.asarray(fit_counts).tolist()
         pc_l = pc_fast.tolist()
-        for i, pod in enumerate(pods):
-            sel = sel_l[i]
+        for j, i in enumerate(fast_idx.tolist()):
+            sel = sel_l[j]
+            pod = pods[i]
             if sel >= 0:
                 name = names[sel]
-                results.append(PlacementResult(pod, name, fc_l[i]))
+                results[i] = PlacementResult(pod, name, fc_l[j])
                 if assume:
                     pod.node_name = name
-                    placements.append((pod, pc_l[i]))
+                    placements.append((pod, pc_l[j]))
             else:
-                results.append(PlacementResult(pod, None, fc_l[i]))
+                results[i] = PlacementResult(pod, None, fc_l[j])
         if placements:
             # one lock + one derived-quantity walk per PLACED class
             derived: Dict[int, tuple] = {}
@@ -1282,7 +1341,119 @@ class SchedulingEngine:
                                   *rep.nonzero_request(), rep.used_ports())
             self.cache.assume_pods_bulk(placements, derived)
             self._touch(p.node_name for p, _ in placements)
-        return results
+
+    def _context(self, infos) -> SchedulingContext:
+        """The exact oracle's view of `infos` under this engine's workloads,
+        volumes and Policy."""
+        return SchedulingContext(
+            infos, self.workloads_provider(),
+            hard_pod_affinity_weight=self.hard_pod_affinity_weight,
+            volume_ctx=self.volume_ctx, policy_algos=self.policy_algos)
+
+    def _oracle_tail(self, pods, idx, assume: bool = True
+                     ) -> List[Optional[str]]:
+        """The exact object-level scheduleOne for pods[idx], in order, each
+        seeing the previous one's assume (when `assume`). Returns the node
+        names, None where a pod fits nowhere."""
+        infos = self.cache.node_infos()
+        names = self.snapshot.node_names
+        ctx = self._context(infos)
+        out: List[Optional[str]] = []
+        for i in idx:
+            name = oracle.schedule_one(pods[i], names, infos, self.rr,
+                                       self.priorities, ctx)
+            out.append(name)
+            if name is not None and assume:
+                self._assume(pods[i], name)
+                infos = self.cache.node_infos()
+                ctx.infos = infos
+                ctx.invalidate()
+        return out
+
+    def _run_wave(self, batch, adata, cls_arr, nodes, state, pc_fast, pf,
+                  aff_arrays, aff_mode, kernel_priorities, weights):
+        """Wave mode with affinity routing: classes whose REQUIRED
+        (anti-)affinity makes placement order-dependent (adata.serialize)
+        run through the strict scan AFTER the wave pass — seeded with the
+        wave's topology occupancy so in-batch interactions stay exact —
+        while everything else takes the throughput path with batch-frozen
+        spread/interpod scores (waves.frozen_affinity_scores)."""
+        w_ip, w_sp = weights
+        fits_on, prio_on, spread_on = aff_mode
+        dev = self.device
+        extra = None
+        if prio_on or spread_on:
+            extra = waves.frozen_affinity_scores(
+                cls_arr, nodes, state, aff_arrays,
+                (w_ip if prio_on else 0, w_sp if spread_on else 0))
+        ser = adata.serialize[pc_fast[:pf]]
+        selected = np.full(pf, -1, dtype=np.int32)
+        fit_counts = np.zeros(pf, dtype=np.int32)
+        rr = self.rr.counter & U32_MASK
+        wave_pos = np.nonzero(~ser)[0]
+        strict_pos = np.nonzero(ser)[0]
+        state_cur = state
+        stats: Dict[str, int] = {}
+        if len(wave_pos):
+            wp = len(wave_pos)
+            pcw = np.full(bucket(wp), batch.num_classes, dtype=np.int32)
+            pcw[:wp] = pc_fast[wave_pos]
+            # aff/aff_mode reach only the straggler finish inside
+            # place_waves: preferred scoring stays batch-frozen (extra), so
+            # prio/spread are off there to avoid counting them twice
+            sel_w, fc_w, state_cur, rr = waves.place_waves(
+                cls_arr, nodes, state_cur, pcw, rr, kernel_priorities,
+                stats=stats, extra_score=extra, aff=aff_arrays,
+                aff_mode=(fits_on, False, False))
+            selected[wave_pos] = sel_w[:wp]
+            fit_counts[wave_pos] = fc_w[:wp]
+        if len(strict_pos):
+            sp_n = len(strict_pos)
+            COUNTERS.inc("engine.classic_strict_rows", sp_n)
+            pcs = np.full(bucket(sp_n), batch.num_classes, dtype=np.int32)
+            pcs[:sp_n] = pc_fast[strict_pos]
+            aff_init = None
+            if aff_arrays is not None:
+                c_dim = aff_arrays["m_aff"].shape[0]
+                comm_np = np.zeros((c_dim, int(nodes["alloc"].shape[0])),
+                                   dtype=np.int32)
+                for j in wave_pos:
+                    if selected[j] >= 0:
+                        comm_np[pc_fast[j], selected[j]] += 1
+                committed0 = tensor_from_numpy(comm_np, dev)
+                # per-domain occupancy [C, L]: the contraction runs over
+                # nodes, so each sum is at most the pods the cluster holds
+                # (< 2^24) and int_matmul is exact here
+                commdom0 = int_matmul(committed0, nodes["labels"].T)
+                comm_cnt0 = committed0.sum(dim=1, dtype=I32)
+                aff_init = (commdom0, committed0, comm_cnt0)
+            with timed_span("engine.strict_scan"):
+                sel_s, fc_s, _, rr_d = gather_place_batch(
+                    cls_arr, tensor_from_numpy(pcs, dev), nodes, state_cur,
+                    torch.tensor(rr, dtype=torch.int64, device=dev),
+                    kernel_priorities, aff=aff_arrays, aff_mode=aff_mode,
+                    aff_init=aff_init)
+                # strict-tail result fetch (the classic wave mode is
+                # synchronous: the caller consumes placements immediately)
+                selected[strict_pos] = sel_s.cpu().numpy()[:sp_n]
+                fit_counts[strict_pos] = fc_s.cpu().numpy()[:sp_n]
+                rr = int(rr_d)
+        self.last_wave_stats = stats
+        return selected, fit_counts, rr
+
+    def _assume(self, pod: Pod, node_name: str) -> None:
+        pod.node_name = node_name
+        self.cache.assume_pod(pod)
+        self._touch((node_name,))
+
+    def _port_words(self, batch: ClassBatch) -> int:
+        """Port-bitmap words to ship: the highest word any node uses or any
+        batch pod requests, power-of-2 bucketed."""
+        max_words = self.snapshot.port_words_used()
+        if np.any(batch.reps_batch.ports >= 0):
+            max_words = max(max_words,
+                            int(batch.reps_batch.ports.max()) // 32 + 1)
+        return bucket(max(max_words, 1), lo=1)
 
     # ------------------------------------------------- targeted refresh
 
@@ -1592,29 +1763,44 @@ class SchedulingEngine:
 
     def _wave_encoding(self, pods: Sequence[Pod], infos):
         """(encoding, pod_class[n]) for a pipeline chunk, via the
-        (vocab_gen, aff_seq, workload-identity)-keyed reuse cache.
-        Affinity classes the topology counters express run per wave on
-        the device; the rest of the required-affinity shapes ride as
-        inactive rows and place at the harvest's strict tail. Classes for
-        the exact host oracle are marked host_exact (dispatch refuses
-        them)."""
+        (vocab_gen, aff_seq, workload-identity)-keyed reuse cache. Every
+        chunk shape is wave-eligible: affinity classes the topology
+        counters express run per wave on the device, label-pure host-check
+        classes carry an exact precomputed host_fit column, Policy classes
+        carry frozen policy_fit/policy_score columns with a fence-side
+        exact re-check, and everything else (live-NodeInfo ports,
+        preference overflow, Policy order-dependence, affinity slot
+        overflow) rides inactive and places at the harvest's exact oracle
+        tail."""
         snap = self.snapshot
         enc = self._wave_enc
+        policy_active = self.policy_algos is not None \
+            and self.policy_algos.active
         w_ip = sum(w for nm, w in self.priorities
                    if nm == "InterPodAffinityPriority")
         w_sp = sum(w for nm, w in self.priorities
                    if nm == "SelectorSpreadPriority")
-        # workloads are placement-relevant only through a live
-        # SelectorSpread weight; otherwise their churn can never change a
-        # placement and the encoding ignores them entirely
-        workloads_now = tuple(self.workloads_provider()) if w_sp else ()
+        # workloads are placement-relevant only through Policy predicates
+        # or a live SelectorSpread weight; otherwise their churn can never
+        # change a placement and the encoding ignores them entirely
+        workloads_now = tuple(self.workloads_provider()) \
+            if (policy_active or w_sp) else ()
         fresh = enc is not None and enc.vocab_gen == snap.vocab_gen
-        if fresh and w_sp:
+        if fresh and enc.policy_on != policy_active:
+            fresh = False
+        if fresh and (policy_active or w_sp):
             wk = enc.wkey
             if len(wk) != len(workloads_now) or not all(
                     a is b for a, b in zip(wk, workloads_now)):
-                # workload set moved: the frozen spread arrays are stale
+                # workload set moved: the frozen policy/spread arrays and
+                # the needs_host classification are stale — full rebuild
                 fresh = False
+        if fresh and enc.has_static_cols \
+                and enc.labels_gen != snap.labels_gen:
+            # host/policy static columns bake label content; checked
+            # BEFORE the affinity label-patch path so a patched encoding
+            # can never keep a stale column
+            fresh = False
         if fresh and enc.adata is not None \
                 and enc.labels_gen != snap.labels_gen:
             # label content moved: patch the touched rows or rebuild
@@ -1652,8 +1838,9 @@ class SchedulingEngine:
             or (bool(w_sp) and bool(workloads_now))
         all_pairs: list = []
         aff_pairs: list = []
-        if build_adata:
+        if build_adata or policy_active:
             all_pairs, aff_pairs = aff_ops.collect_pod_pairs(infos)
+        if build_adata:
             # topology keys referenced by ANY affinity term must be
             # interned BEFORE the label matrix finalizes
             aff_ops.intern_topology_pairs(snap, seed + list(pods), aff_pairs)
@@ -1661,8 +1848,30 @@ class SchedulingEngine:
         n_cls = batch.num_classes
         rb = batch.reps_batch
         c_pad = bucket(n_cls + 1)
+        # host-check absorption: label-pure host classes get an exact
+        # precomputed fit column and ride the wave; the rest (live-NodeInfo
+        # ports, score-affecting preference overflow, shapes the column
+        # cannot derive, Policy order-dependence, affinity slot overflow
+        # below) ride as inactive rows and place at the harvest's exact
+        # oracle tail
         host_exact = np.zeros(c_pad, dtype=bool)
-        host_exact[:n_cls] = rb.needs_host_check[:n_cls]
+        host_static = np.zeros(c_pad, dtype=bool)
+        nhc = rb.needs_host_check[:n_cls]
+        host_exact[:n_cls] = nhc & rb.host_check_dynamic[:n_cls]
+        host_fit_rows: Dict[int, np.ndarray] = {}
+        for c in np.nonzero(nhc & ~rb.host_check_dynamic[:n_cls])[0]:
+            row = rb.host_static_fit(int(c), snap)
+            if row is None:
+                host_exact[c] = True  # not derivable from labels alone
+            else:
+                host_static[c] = True
+                host_fit_rows[int(c)] = row
+        if policy_active:
+            # service-coupled classes are order-dependent in-batch (the
+            # reference's pod lister is the scheduler cache) -> exact tail
+            host_exact[:n_cls] |= np.asarray(
+                self.policy_algos.needs_host(batch.reps, workloads_now),
+                dtype=bool)[:n_cls]
         adata = None
         fits_on = prio_on = spread_on = False
         aff_wave_dev = aff_tail_dev = None
@@ -1696,6 +1905,27 @@ class SchedulingEngine:
                                                 self.device)
         COUNTERS.inc("engine.wave_encode_build")
         cls_arr = preds.pod_arrays_padded(rb, c_pad, self.device)
+        if host_fit_rows:
+            # the host-check static column: exact label-pure fit rows for
+            # host_static classes, folded into the [C, N] eval via
+            # predicates.static_fits (padding rows True — the validity
+            # mask already excludes them); a copy, like every upload
+            hf = np.ones((c_pad, snap.valid.shape[0]), dtype=bool)
+            for c, row in host_fit_rows.items():
+                hf[c] = row
+            cls_arr["host_fit"] = tensor_from_numpy(hf, self.device)
+        policy_cols = False
+        if policy_active:
+            pfit, pscore = self.policy_algos.static_class_arrays(
+                batch.reps, snap, workloads_now, all_pairs, c_pad,
+                skip=host_exact[:n_cls])
+            if pfit is not None:
+                cls_arr["policy_fit"] = tensor_from_numpy(pfit, self.device)
+                policy_cols = True
+            if pscore is not None:
+                cls_arr["policy_score"] = tensor_from_numpy(pscore,
+                                                            self.device)
+                policy_cols = True
         key_index = {pod_class_key(rep): c
                      for c, rep in enumerate(batch.reps)}
         special = ((rb.ports[:n_cls, 0] >= 0)
@@ -1717,7 +1947,9 @@ class SchedulingEngine:
             key_node=key_node, static_forbid_hit=static_forbid_hit,
             tail_cols=tail_cols, n_pad=snap.valid.shape[0],
             labels_gen=snap.labels_gen, host_exact=host_exact,
-            spread_on=spread_on, wkey=workloads_now)
+            host_static=host_static, policy_on=policy_active,
+            spread_on=spread_on, wkey=workloads_now,
+            has_static_cols=bool(host_fit_rows) or policy_cols)
         if adata is not None:
             for c, rep in enumerate(reps):
                 for a, term in enumerate(_own_terms(rep, anti=True)):
@@ -1737,9 +1969,11 @@ class SchedulingEngine:
         (anti-)affinity chunks are wave-eligible: counter-expressible
         classes re-evaluate their masks per wave on the device,
         inexpressible ones ride as inactive rows and the harvest finishes
-        them via the seeded strict tail. Chunks with classes for the exact
-        host oracle, and gangs, raise NotImplementedError (later slices
-        of the port)."""
+        them via the seeded strict tail. Host-check and Policy chunks ride
+        too: label-pure host classes via the precomputed host_fit column,
+        the rest as inactive rows placed at the harvest's exact oracle
+        tail. Gangs raise NotImplementedError (a later slice of the
+        port)."""
         if gangs:
             raise NotImplementedError(GANG_SLICE)
         if not pods:
@@ -1748,10 +1982,8 @@ class SchedulingEngine:
         with timed_span("pipeline.dispatch"):
             infos = self._refresh()
             enc, pc = self._wave_encoding(pods, infos)
-            if enc.host_exact[pc].any():
-                raise NotImplementedError(
-                    f"chunk has classes for the exact host oracle: "
-                    f"{HOST_ORACLE_SLICE}")
+            hx = enc.host_exact[pc]
+            host_idx = np.nonzero(hx)[0].astype(np.int64)
             if enc.adata is not None:
                 # patched topology views re-upload once per dispatch,
                 # however many churn events were absorbed since the last
@@ -1761,6 +1993,13 @@ class SchedulingEngine:
             p_pad = bucket(max(n, self.wave_pad_floor or 1))
             pc_pad = np.full(p_pad, enc.num_classes, dtype=np.int32)
             pc_pad[:n] = pc
+            if host_idx.size:
+                # host_exact rows ride as the PADDING class: impossible on
+                # the device (fit nothing, no RR ticks, retire on the first
+                # wave) — the harvest's exact oracle tail places them
+                # against live NodeInfo truth after the fence
+                pc_pad[host_idx] = enc.num_classes
+                COUNTERS.inc("engine.wave_host_rows", int(host_idx.size))
             max_words = self.snapshot.port_words_used()
             if enc.ports_max >= 0:
                 max_words = max(max_words, enc.ports_max // 32 + 1)
@@ -1788,10 +2027,10 @@ class SchedulingEngine:
             strict_idx = np.empty(0, dtype=np.int64)
             aff = committed_dev = act_dev = None
             if enc.fits_on:
-                ser = enc.wave_strict[pc]
+                ser = enc.wave_strict[pc] & ~hx
                 strict_idx = np.nonzero(ser)[0]
                 act = np.zeros(p_pad, dtype=bool)
-                act[:n] = ~ser
+                act[:n] = ~(ser | hx)
                 act_dev = tensor_from_numpy(act, dev)
                 # committed_nodes uploads as a COPY: the harvest folds
                 # commits into it in place (np.add.at) while this wave's
@@ -1830,7 +2069,8 @@ class SchedulingEngine:
                                    [p.key() for p in pods], a=wave_id)
             return WaveHandle(list(pods), pc, enc, job, nodes, blind,
                               pop_ts, time.monotonic(), self.wave_pad_floor,
-                              strict_idx=strict_idx, wave_id=wave_id)
+                              strict_idx=strict_idx, wave_id=wave_id,
+                              host_idx=host_idx)
 
     def harvest_waves(self, handle: WaveHandle) -> WaveHarvest:
         """Wait for one wave's job, fence its placements against
@@ -1872,6 +2112,11 @@ class SchedulingEngine:
         act = packed_h[2 * p_pad:2 * p_pad + n].astype(bool)
         counter_h = int(packed_h[3 * p_pad]) & U32_MASK
         tail_idx = np.nonzero(act)[0]
+        if handle.host_idx.size:
+            # host_exact rows retire inactive off the padding class on the
+            # first wave; they never ride the device tail — the exact
+            # oracle tail below places them after the fence
+            tail_idx = np.setdiff1d(tail_idx, handle.host_idx)
         straggler_idx = np.empty(0, dtype=np.int64)
         if enc.adata is not None and tail_idx.size:
             # max-waves stragglers may NOT ride the seeded tail in an
@@ -1916,9 +2161,10 @@ class SchedulingEngine:
             with timed_span("pipeline.fence"):
                 (acc_idx, acc_node, acc_cls, conflict_idx, liveness_idx,
                  conflict_codes) = self._fence(handle, sel, placed_idx)
+        host_rows = set(handle.host_idx.tolist())
         unschedulable = [(pods[i], int(fc[i]))
                          for i in np.nonzero(sel < 0)[0].tolist()
-                         if i not in strag]
+                         if i not in strag and i not in host_rows]
         bound: List[Pod] = []
         # conflicts + their typed reason codes, parallel: max-waves
         # stragglers are an affinity-routing verdict
@@ -1983,6 +2229,20 @@ class SchedulingEngine:
                               1)
                 enc.aff_seq += len(acc_l)
             bound = [pods[i] for i in sorted(acc_l)]
+        if host_rows:
+            # the exact oracle tail: host_exact rows place AFTER the wave
+            # rows' assume, against live NodeInfo truth — the classic
+            # round's slow_idx FIFO loop, so each host pod sees every
+            # commit this harvest just made (and each other's)
+            h_rows = sorted(host_rows)
+            COUNTERS.inc("engine.wave_host_tail", len(h_rows))
+            with timed_span("pipeline.host_tail"):
+                host_nodes = self._oracle_tail(pods, h_rows)
+            for i, name in zip(h_rows, host_nodes):
+                if name is not None:
+                    bound.append(pods[i])
+                else:
+                    unschedulable.append((pods[i], 0))
         if _rec_t0 and RECORDER.enabled:
             RECORDER.record(flightrec.HARVEST, wave=handle.wave_id,
                             t0=_rec_block_end - t_block, dur=t_block,
@@ -2151,6 +2411,43 @@ class SchedulingEngine:
                     podtrace.REASON_STALE if aff_stale \
                     else podtrace.REASON_AFFINITY
                 ok &= ~aff_bad
+        # host-check re-validation: the host_fit column baked label
+        # CONTENT at build; a relabel landing while this wave was in
+        # flight makes the column stale — conservative requeue of every
+        # host_static row (the re-dispatch rebuilds the encoding against
+        # fresh truth: the has_static_cols invalidation guarantees it)
+        hs_bad = enc.host_static[cls_rows]
+        if hs_bad.any() and snap.labels_gen != enc.labels_gen:
+            n_h = int((hs_bad & ok).sum())
+            if n_h:
+                COUNTERS.inc("engine.hostcheck_fence_requeues", n_h)
+            reason[hs_bad & (reason < 0)] = podtrace.REASON_HOSTCHECK
+            ok &= ~hs_bad
+        if enc.policy_on and self.policy_algos is not None \
+                and self.policy_algos.active:
+            # Policy re-validation: the frozen policy_fit column was exact
+            # against the build-time workload set and pod locations;
+            # re-check the EXACT oracle predicate against live truth for
+            # every surviving row, in order — ServiceAffinity moves with
+            # every commit, and this fence is what lets Policy chunks ride
+            # blind without ghost-binding on stale state
+            cand = np.nonzero(ok)[0]
+            if cand.size:
+                infos_f = self.cache.node_infos()
+                ctx = self._context(infos_f)
+                names_f = snap.node_names
+                p_bad = np.zeros(m, dtype=bool)
+                for r in cand.tolist():
+                    info = infos_f.get(names_f[int(gnode[r])])
+                    node = info.node if info is not None else None
+                    if node is None or not self.policy_algos.oracle_fit(
+                            handle.pods[int(gidx[r])], node, ctx):
+                        p_bad[r] = True
+                if p_bad.any():
+                    COUNTERS.inc("engine.policy_fence_requeues",
+                                 int(p_bad.sum()))
+                    reason[p_bad & (reason < 0)] = podtrace.REASON_POLICY
+                    ok &= ~p_bad
         # liveness re-validation: a row targeting a node the owner
         # declared dying (the doomed set) or one the refreshed snapshot
         # already rules out must not bind into a ghost; these rows requeue
@@ -2169,7 +2466,8 @@ class SchedulingEngine:
             ok &= ~live_bad
         conflict_mask = ~ok & ~live_bad
         for code in (podtrace.REASON_CAPACITY, podtrace.REASON_AFFINITY,
-                     podtrace.REASON_STALE):
+                     podtrace.REASON_STALE, podtrace.REASON_HOSTCHECK,
+                     podtrace.REASON_POLICY):
             n_r = int(((reason == code) & conflict_mask).sum())
             if n_r:
                 COUNTERS.inc("engine.fence_reason_"

@@ -1,6 +1,6 @@
 """The always-on incremental scheduler loop (a copy of the reference
-package's engine/streaming.py, without the fast lane: ROADMAP §1.4 of the
-port).
+package's engine/streaming.py, without the fast lane: ROADMAP §1 'The
+Sparrow fast lane' of the port).
 
 BENCH_r09 exposed the shape of the old engine: a pre-loaded 30k-pod
 backlog drained at 28.8k pods/s, but under a live 5k/s offered stream it
@@ -56,7 +56,8 @@ from kubernetes_tpu_torch.ops.predicates import bucket
 from kubernetes_tpu_torch.utils.trace import COUNTERS, Trace
 
 FASTLANE_SLICE = ("the Sparrow fast lane (ops/fastlane.py, "
-                  "engine/fastlane.py), ROADMAP §1.4 of the port")
+                  "engine/fastlane.py), ROADMAP §1 'The Sparrow fast lane' "
+                  "of the port")
 
 
 class ScheduleLoop:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.types import MAX_PRIORITY
+from kubernetes_tpu_torch.convert import tensor_from_numpy
 from kubernetes_tpu_torch.engine.batch import (
     NodeState,
     U32_MASK,
@@ -97,6 +98,10 @@ def precompute(cls: Arrays, nodes: Arrays,
             continue
         static_score = static_score \
             + prio.PRIORITY_REGISTRY[name](cls, nodes, None) * weight
+    if "policy_score" in cls:
+        # Policy-configured NodeLabel / ServiceAntiAffinity priorities
+        # (weights pre-folded; ops/policy_algos.py)
+        static_score = static_score + cls["policy_score"]
     names = {nm for nm, _ in priorities}
     tt_cnt = int_matmul(cls["intolerated_pref"], nodes["taints_pref"]) \
         if "TaintTolerationPriority" in names \
@@ -645,18 +650,22 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
 def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
                 pod_class: np.ndarray, counter: int,
                 priorities: Tuple[Tuple[str, int], ...],
-                max_waves: int = 64, stats: dict = None):
+                max_waves: int = 64, stats: dict = None,
+                extra_score: torch.Tensor = None, aff: Arrays = None,
+                aff_mode: Tuple[bool, bool, bool] = (False, False, False)):
     """Run waves until every pod is placed or proven unplaceable. Returns
     (selected [P] int32 node index or -1, fit_count [P], final NodeState,
     final counter). Pods still active after max_waves are finished by the
-    strict loop (engine/batch.py). ``stats``, when given, receives the
-    wave count and the straggler count."""
+    strict loop (engine/batch.py), which alone reads `aff`/`aff_mode`;
+    `extra_score` [C, N] is the batch-frozen spread/interpod score of both.
+    ``stats``, when given, receives the wave count and the straggler
+    count."""
     P = len(pod_class)
     dev = nodes["alloc"].device
-    pc_d = torch.from_numpy(np.array(pod_class, dtype=np.int32)).to(dev)
+    pc_d = tensor_from_numpy(np.asarray(pod_class, dtype=np.int32), dev)
     c0 = torch.tensor(counter & U32_MASK, dtype=torch.int64, device=dev)
     packed, state = waves_loop(cls, nodes, state, pc_d, c0, priorities,
-                               max_waves)
+                               max_waves, extra_score)
     packed_h = packed.cpu().numpy()
     final_sel = packed_h[:P].copy()
     final_fc = packed_h[P:2 * P].copy()
@@ -674,10 +683,13 @@ def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
         else:  # unpadded class arrays: no inert row to map to
             pc = np.empty(n_strag, dtype=np.int32)
         pc[:n_strag] = pod_class[idx]
+        # the affinity class data rides along so priorities holding
+        # SelectorSpread/InterPodAffinity pass place_batch's guard when
+        # extra_score is None (fits-only affinity batches)
         sel, fcs, state, ctr = gather_place_batch(
-            cls, torch.from_numpy(pc).to(dev), nodes, state,
+            cls, tensor_from_numpy(pc, dev), nodes, state,
             torch.tensor(counter_h, dtype=torch.int64, device=dev),
-            priorities)
+            priorities, aff=aff, aff_mode=aff_mode, extra_score=extra_score)
         final_sel[idx] = sel.cpu().numpy()[:n_strag]
         final_fc[idx] = fcs.cpu().numpy()[:n_strag]
         counter_h = int(ctr)

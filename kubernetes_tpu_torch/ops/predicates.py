@@ -295,7 +295,7 @@ def static_fits(pods: Arrays, nodes: Arrays) -> torch.Tensor:
     """All spec-independent predicates -> [P,N] (node conditions excluded:
     every consumer ANDs node_condition_fit against fresh node arrays)."""
     n = nodes["alloc"].shape[0]
-    return (
+    out = (
         selector_fit(pods, nodes["labels"])
         & taints_fit(pods["intolerated"], nodes["taints_sched"])
         & host_fit(pods["has_host"], pods["host_required"], n)
@@ -304,6 +304,17 @@ def static_fits(pods: Arrays, nodes: Arrays) -> torch.Tensor:
         & pv_affinity_fit(pods, nodes["labels"])
         & ~pods["impossible"][:, None]
     )
+    if "policy_fit" in pods:
+        # Policy-configured NodeLabelPresence / ServiceAffinity masks,
+        # precomputed host-side (ops/policy_algos.py)
+        out = out & pods["policy_fit"]
+    if "host_fit" in pods:
+        # the exact label-pure host predicate for classes whose selector /
+        # zone / PV shape overflowed the fused encoding, precomputed
+        # host-side (PodBatch.host_static_fit); ANDing exact with the
+        # over-approximate terms above keeps the composite exact
+        out = out & pods["host_fit"]
+    return out
 
 
 def fits(pods: Arrays, nodes: Arrays) -> torch.Tensor:

@@ -1,8 +1,7 @@
 """The port's batch engine on the CPU against the reference engine, exactly:
 placements, fit counts, the RR counter and the cache's totals after
 successive wave-mode batches on one cache; the forced straggler finish of
-place_waves; strict mode; and the explicit refusals of what later slices
-bring."""
+place_waves; strict mode; and the engine's node uploads being copies."""
 
 import numpy as np
 import pytest
@@ -140,20 +139,6 @@ def test_forced_straggler_finish_matches_reference():
     np.testing.assert_array_equal(sel_t, sel_j)
     np.testing.assert_array_equal(fc_t, fc_j)
     assert ctr_t == ctr_j
-
-
-def test_batches_for_later_slices_raise():
-    cache = _cache(th, TCache, 16)
-    eng = TEngine(cache, device="cpu")
-    with pytest.raises(NotImplementedError, match="affinity"):
-        eng.schedule(th.mixed_affinity_pods(100), mode="wave")
-    with pytest.raises(NotImplementedError, match="host oracle"):
-        eng.schedule([tt.make_pod("many-ports", cpu=100,
-                                  ports=list(range(7000, 7009)))],
-                      mode="wave")
-    # nothing was assumed by the refused batches
-    assert all(not info.pods for info in cache.node_infos().values())
-
 
 
 def test_node_uploads_are_copies(monkeypatch):

@@ -18,6 +18,7 @@ from kubernetes_tpu_torch.engine.scheduler_engine import (
     evaluate_pods_batch,
 )
 from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
+from kubernetes_tpu_torch.server.daemon import SchedulerDaemon
 from kubernetes_tpu_torch.server.extender import TPUExtenderBackend
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
@@ -76,3 +77,5 @@ def test_entry_points_default_to_the_card():
         TPUExtenderBackend()
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_pods_batch([], {}, ClusterSnapshot(), ())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SchedulerDaemon(ApiServerLite(), "me")

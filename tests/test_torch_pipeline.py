@@ -265,24 +265,14 @@ def _sched(pods, **kw):
     return s
 
 
-def test_host_oracle_chunk_raises_naming_its_slice():
-    s = _sched([tt.make_pod("many-ports", cpu=100,
-                            ports=list(range(7000, 7009)))])
-    with pytest.raises(NotImplementedError, match=r"host-oracle.*§1\.2"):
-        s.run_until_drained()
-
-
-def test_policy_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match=r"Policy.*§1\.2"):
-        _sched([], policy=object())
-
-
 def test_gangs_raise_naming_their_slice():
     s = _sched(th.gang_pods(16))
-    with pytest.raises(NotImplementedError, match=r"gangs.*§1\.4"):
+    with pytest.raises(NotImplementedError,
+                       match=r"gangs.*ROADMAP §1 'Gangs on both drain paths'"):
         s.run_until_drained()
     s = _sched(th.gang_pods(16))
-    with pytest.raises(NotImplementedError, match=r"gangs.*§1\.4"):
+    with pytest.raises(NotImplementedError,
+                       match=r"gangs.*ROADMAP §1 'Gangs on both drain paths'"):
         s.run_until_drained(pipeline=False)
 
 
@@ -302,7 +292,8 @@ def test_priority_preemption_raises_naming_its_slice():
         for pipeline in (None, True):
             s = _sched(big())
             with pytest.raises(NotImplementedError,
-                               match=r"preemption.*§1\.4"):
+                               match=r"preemption.*ROADMAP §1 "
+                                     r"'PodPriority preemption'"):
                 s.run_until_drained(pipeline=pipeline)
     finally:
         tfeatures.DEFAULT_FEATURE_GATE.reset()
@@ -310,10 +301,13 @@ def test_priority_preemption_raises_naming_its_slice():
 
 def test_fastlane_raises_naming_its_slice():
     s = _sched([])
-    with pytest.raises(NotImplementedError, match=r"fast lane.*§1\.4"):
+    with pytest.raises(NotImplementedError,
+                       match=r"fast lane.*ROADMAP §1 'The Sparrow fast lane'"):
         s.stream(fastlane=True)
 
 
 def test_mesh_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match=r"mesh.*§1\.5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"mesh.*ROADMAP §1 'Node-axis sharding across "
+                             r"several cards'"):
         _sched([], mesh=object())

@@ -9,18 +9,22 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu.api import policy as jpolicy
 from kubernetes_tpu.api import types as jt
 from kubernetes_tpu.engine import scheduler_engine as jse
 from kubernetes_tpu.models import hollow as jh
+from kubernetes_tpu.ops import policy_algos as jpalgos
 from kubernetes_tpu.ops.priorities import DEFAULT_PRIORITIES as JPRIO
 from kubernetes_tpu.state.cache import SchedulerCache as JCache
 from kubernetes_tpu.state.snapshot import ClusterSnapshot as JSnapshot
 from kubernetes_tpu.utils import trace as jtrace
+from kubernetes_tpu_torch.api import policy as tpolicy
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.engine import scheduler_engine as tse
 from kubernetes_tpu_torch.models import hollow as th
 from kubernetes_tpu_torch.ops import affinity as taff
 from kubernetes_tpu_torch.ops import kernels
+from kubernetes_tpu_torch.ops import policy_algos as tpalgos
 from kubernetes_tpu_torch.ops import predicates as tpreds
 from kubernetes_tpu_torch.ops import priorities as tprio
 from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES as TPRIO
@@ -338,17 +342,37 @@ def test_fused_eval_batch_rows_equal_single_class_eval():
     assert kernels.LAUNCHES["incidence_matmul"] == 0  # CPU: plain version
 
 
-class _ActivePolicy:
-    active = True
+def _policy_algos(mods):
+    parse = jpolicy.parse_policy if mods is REF else tpolicy.parse_policy
+    algos = jpalgos if mods is REF else tpalgos
+    return algos.algorithms_from_policy(parse("""{
+      "predicates": [{"name": "P", "argument": {"labelsPresence":
+        {"labels": ["failure-domain.beta.kubernetes.io/zone"],
+         "presence": true}}}],
+      "priorities": [{"name": "L", "weight": 4, "argument":
+        {"labelPreference": {"label": "kubernetes.io/hostname",
+                             "presence": true}}}]}"""))[1]
 
 
 def test_active_policy_algos_raises():
-    tc, ts, tw = _world(PORT)
-    pod = _probes(PORT)[0]
-    with pytest.raises(NotImplementedError, match=r"Policy.*§1\.2"):
-        tse.evaluate_pod(pod, tc.node_infos(), ts, TPRIO, tw,
-                         policy_algos=_ActivePolicy(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Policy.*§1\.2"):
-        tse.evaluate_pods_batch([pod], tc.node_infos(), ts, TPRIO, tw,
-                                policy_algos=_ActivePolicy(),
-                                eval_cache=tse.EvalCache(), device="cpu")
+    """An active Policy no longer raises: the verdict routes every pod to
+    the exact host oracle, single and batched, with the reference's fits
+    and scores."""
+    (jc, js, jw), (tc, ts, tw) = _world(REF), _world(PORT)
+    ja, ta = _policy_algos(REF), _policy_algos(PORT)
+    jps, tps = _probes(REF)[:6], _probes(PORT)[:6]
+    for jp, tp in zip(jps, tps):
+        want = jse.evaluate_pod(jp, jc.node_infos(), js, JPRIO, jw,
+                                policy_algos=ja)
+        got = tse.evaluate_pod(tp, tc.node_infos(), ts, TPRIO, tw,
+                               policy_algos=ta, device="cpu")
+        _eq(got, want, tp.name)
+    want = jse.evaluate_pods_batch(jps, jc.node_infos(), js, JPRIO, jw,
+                                   policy_algos=ja,
+                                   eval_cache=jse.EvalCache())
+    got = tse.evaluate_pods_batch(tps, tc.node_infos(), ts, TPRIO, tw,
+                                  policy_algos=ta,
+                                  eval_cache=tse.EvalCache(), device="cpu")
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        _eq(g, w)
