@@ -70,13 +70,13 @@ phase fails. Phases:
   8. the scheduler daemon with a Policy (the v1.7 knob set of Kubernetes'
      compatibility_test.go, no extender) from a --policy-config-file, on
      5,000 hollow nodes labeled region / zone / foo (90%) / bar (half)
-     and 30,000 pending pods: mixed_affinity plus 300 host-static pods
-     (five ORed node-selector terms) and 100 host-exact pods (nine host
+     and 30,000 pending pods: mixed_affinity plus 1% host-static pods
+     (five ORed node-selector terms) and 1/300 host-exact pods (nine host
      ports; two Services coupled by ServiceAffinity on region).
-     8a: two SchedulerDaemons on one fake clock; A leads, runs one
-     classic round over half the queue and crashes holding its lease; B
-     waits it out, relists and finishes with step(). 8b: the pipelined
-     drain of the same store contents, Scheduler(policy=...)
+     8a (depth cut to 10,000 pods): two SchedulerDaemons on one fake
+     clock; A leads, runs one classic round over half the queue and
+     crashes holding its lease; B waits it out, relists and finishes with
+     step(). 8b: the pipelined drain of the same store contents, Scheduler(policy=...)
      .run_until_drained(): no pipeline flush, the host-exact rows ride
      to the oracle tail. 8c: the strict classic round, mixed_affinity at
      5,000 x 2,000. Each run is audited from the store (phase 6's audit,
@@ -86,11 +86,34 @@ phase fails. Phases:
      its plain version; both kernels must launch in each. 8d: the three
      runs at 512 x 3,000 (strict: 256 x 600) on the card and on the CPU
      give equal placements and RR counters;
-  9. print the per-kernel summary line, then the result line.
+  9. gangs, PodPriority preemption and the Sparrow fast lane, each
+     through its own entry point. 9a: bench.py measure_gang_mix's drain,
+     gang_mix at 5,000 x 30,000 in chunks of 1,024 with gangs riding the
+     waves, then the flush baseline (every gang chunk to the classic
+     round) at bench's 1,000 x 6,000; zero partially bound gangs, phase
+     6's store audit. 9b: bench.py measure_priority_churn through
+     Scheduler.stream() with PodPriority on behind FaultyBindApi's
+     eviction faults, at bench's 240 nodes and then at 5,000 nodes
+     pre-filled 19 pods a node with 10,000 more streamed; no duplicate
+     bind, no double eviction or ghost victim, no 60 s window past the
+     disruption budget, the victim scan on the card every round. 9c: a
+     SchedulerDaemon whose componentconfig turns PodPriority on, over
+     5,000 full nodes and 1,000 pending prod/system pods, stepped until
+     nothing placeable is left (classic preemption audited). 9d: bench.py
+     measure_fastlane_mixed's three windows at 5,000 nodes; the outcome
+     counters partition the fast pods and the probe window's evals run on
+     the card. 9e: card == CPU for gang_mix at 512 x 3,000 (pipelined,
+     overlap off, flush), for preempt_scan, the wave plans and the classic
+     round's plans on a full 512-node store, and for sample_eval on 1,000
+     index sets; then the two PyTorch device functions (victim_scan,
+     sample_eval) are timed at their main-path shapes beside their
+     bounds. Each kernel's operands at every launch shape of 9a-9d are
+     held against its plain version;
+ 10. print the per-kernel summary line, then the result line.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7 and 8a-8c) and read just after it; launches made by the comparisons do
-not count.
+7, 8a-8c and 9a-9d) and read just after it; launches made by the
+comparisons do not count.
 """
 
 from __future__ import annotations
@@ -111,6 +134,9 @@ INT8_TENSOR_OPS_PER_S = 1979e12  # int8 tensor cores
 
 N_NODES = 5000
 N_PODS = 30000
+# 8a's depth: cut from 30,000 to 10,000 pods so that the whole run,
+# phase 9 included, stays near 8 minutes; 8b keeps the full 30,000
+P8A_PODS = 10000
 I32_MAX = 2 ** 31 - 1
 FLUSH_BYTES = 256 << 20     # written between cold launches; L2 is 50 MB
 
@@ -943,11 +969,13 @@ def pipelined(mods, profile, n_nodes, n_pods, device=None, overlap=True,
     return api, tot, counters, span_ms, wall, launches
 
 
-def audit_store(api, profile, n_pods):
+def audit_store(api, profile, n_pods, exempt=frozenset()):
     """Audit a drain from the store: every pod bound or provably
-    unschedulable (fits no node of the final state), no node over its
-    CPU, memory or pod count, no pod bound twice; for mixed_affinity the
-    required (anti-)affinity of the profile. Returns (bound, unbound)."""
+    unschedulable (fits no node of the final state; pods in `exempt`, the
+    members of gangs left wholly pending, are not checked alone), no node
+    over its CPU, memory or pod count, no pod bound twice; for
+    mixed_affinity and gang_mix the required (anti-)affinity of the
+    mixed_affinity pods. Returns (bound, unbound)."""
     import numpy as np
     from kubernetes_tpu_torch.models.hollow import HOSTNAME_KEY, ZONE_KEY
     pods, _ = api.list("Pod")
@@ -983,10 +1011,11 @@ def audit_store(api, profile, n_pods):
     free_mem = alloc_mem - u[:, 1]
     room = u[:, 2] < allowed
     for shape in {(p.resource_request().milli_cpu,
-                   p.resource_request().memory) for p in unbound}:
+                   p.resource_request().memory) for p in unbound
+                  if p.key() not in exempt}:
         if ((free_cpu >= shape[0]) & (free_mem >= shape[1]) & room).any():
             fail(f"{profile}: an unbound pod of {shape} fits a node")
-    if profile == "mixed_affinity":
+    if profile in ("mixed_affinity", "gang_mix"):
         zone_of = {n: nodes[n].labels.get(ZONE_KEY) for n in names}
         host_of = {n: nodes[n].labels.get(HOSTNAME_KEY) for n in names}
         anti, labeled, group_zones = {}, {}, {}
@@ -1768,13 +1797,13 @@ def daemon_and_policy(mods, card, device=None):
         # 8a: the daemon at full width, failover included
         spy = OperandSpy(kernels)
         api, rep = daemon_failover(
-            dmods, policy_world(wmods, N_NODES, N_PODS, True),
+            dmods, policy_world(wmods, N_NODES, P8A_PODS, True),
             policy_path, device=device, spy=spy)
-        audit_policy(api, "8a daemon", N_PODS)
+        audit_policy(api, "8a daemon", P8A_PODS)
         del api
         if (rep["holder"], rep["transitions"]) != ("daemon-b", 1):
             fail(f"8a: lease {rep['holder']} / {rep['transitions']}")
-        log(f"8a daemon {N_NODES} x {N_PODS}: A's round "
+        log(f"8a daemon {N_NODES} x {P8A_PODS}: A's round "
             f"{json.dumps(rep['round_a'])} in {rep['wall_a']:.3f} s; B "
             f"(after the crash and the lease) {len(rep['rounds_b'])} "
             f"steps in {rep['wall_b']:.3f} s, first "
@@ -1851,6 +1880,962 @@ def daemon_and_policy(mods, card, device=None):
     return total, err
 
 
+# ---------------------------------------------------------------- phase 9
+
+GANG_CHUNK = 1024                 # bench.py's BENCH_GANG_CHUNK default
+GANG_FLUSH_SHAPE = (1000, 6000)   # measure_gang_mix's own default shape
+CHECK_SHAPE = (512, 3000)         # 9e's card == CPU drains
+P9_GANG_COUNTERS = ("engine.gang_wave_dispatch",
+                    "engine.gang_fence_rollbacks",
+                    "engine.fence_reason_gang",
+                    "engine.wave_flush_gang_host", "engine.wave_dispatch",
+                    "stream.chunk_flush")
+P9_PREEMPT_COUNTERS = ("engine.preempt_scan_dispatch",
+                       "engine.preempt_scan_host_fallback",
+                       "engine.preempt_commits", "engine.preempt_rollbacks",
+                       "engine.victims_evicted",
+                       "engine.preempt_budget_deferred",
+                       "engine.wave_dispatch", "stream.chunk_flush")
+# bench.py measure_priority_churn's scenario as bench runs it
+CHURN = {"rate": 2000.0, "duration_s": 4.0, "drain_s": 6.0,
+         "budget_ms": 250.0, "evict_fail_rate": 0.02,
+         "evict_timeout_rate": 0.01, "max_evictions_per_min": 6000}
+CHURN_NODES = 240
+PRIO_FILL_PER_NODE = 19           # 19 x 200m: 95% of a hollow node's 4,000m
+PRIO_STREAM = 10_000              # 5 s at 2,000/s
+PRIO_DAEMON_PODS = 1000
+# bench.py measure_fastlane_mixed's defaults, n_nodes at the headline size
+FASTLANE = {"n_nodes": 5000, "rate": 2000.0, "fast_rate": 100.0,
+            "duration_s": 3.0, "budget_ms": 250.0, "probe_pods": 64}
+SAMPLE_SETS = 1000
+SAMPLE_K = 16                     # engine/fastlane.py DEFAULT_K
+
+
+def p9_counts(COUNTERS, keys):
+    snap = COUNTERS.snapshot()
+    return {k: snap.get(k, (0, 0.0))[0] for k in keys}
+
+
+def p9_spans(COUNTERS):
+    """Host-clock span totals (ms) of the engine and the pipeline."""
+    return {k: round(1e3 * t, 1) for k, (_, t) in
+            sorted(COUNTERS.snapshot().items())
+            if k.startswith(("engine.", "pipeline.")) and t > 0}
+
+
+def paced_create(api, pods, rate, t0, made, stamp=None):
+    """bench.py's creator thread: create `pods` at `rate` a second from
+    t0, in bursts of at most about 4 ms of the rate; made[0] counts the
+    pods created, stamp(burst, t) notes each burst's creation instant."""
+    burst = max(4, int(rate * 0.004))
+    while made[0] < len(pods):
+        due = min(len(pods), int(rate * (time.monotonic() - t0)),
+                  made[0] + burst)
+        if due > made[0]:
+            for p in pods[made[0]:due]:
+                api.create("Pod", p)
+            if stamp is not None:
+                stamp(pods[made[0]:due], time.monotonic())
+            made[0] = due
+        delay = t0 + (made[0] + 1) / rate - time.monotonic()
+        if delay > 0:
+            time.sleep(min(delay, 0.002))
+
+
+def gang_drain(mods, n_nodes, n_pods, gang_pipeline=True, device=None,
+               overlap=True, chunk=GANG_CHUNK, spy=None):
+    """One gang_mix drain through Scheduler.run_until_drained, as bench.py
+    measure_gang_mix runs it. Returns (api, totals, counters, wall,
+    launches, RR counter)."""
+    import contextlib
+    import torch
+    hollow, api_mod, Scheduler, kernels, COUNTERS = mods
+    api = api_mod.ApiServerLite(max_log=max(200_000,
+                                            3 * (n_nodes + n_pods)))
+    hollow.load_cluster(api, hollow.hollow_nodes(n_nodes),
+                        hollow.PROFILES["gang_mix"](n_pods))
+    sched = Scheduler(api, record_events=False, device=device)
+    sched.gang_pipeline = gang_pipeline
+    sched.start()
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    with spy if spy is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        tot = sched.run_until_drained(max_batch=chunk, overlap=overlap)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cnt = p9_counts(COUNTERS, P9_GANG_COUNTERS)
+    cnt["spans_ms"] = p9_spans(COUNTERS)
+    rr = sched.engine.rr.counter
+    sched.engine.close()
+    return api, tot, cnt, wall, launches, rr
+
+
+def audit_gangs(api, tag, gang_key):
+    """bench.py measure_gang_mix's audit: zero partially bound gangs —
+    every gang wholly bound or wholly pending. Returns (gangs, gangs
+    bound, keys of the members of wholly pending gangs)."""
+    by_gang = {}
+    for p in api.list("Pod")[0]:
+        g = p.annotations.get(gang_key)
+        if g is not None:
+            by_gang.setdefault(g, []).append(p)
+    partial = [g for g, ps in by_gang.items()
+               if len({bool(p.node_name) for p in ps}) != 1]
+    if partial:
+        fail(f"{tag}: {len(partial)} partially bound gangs, e.g. "
+             f"{partial[0]}")
+    if not by_gang:
+        fail(f"{tag}: no gang in the store")
+    pending = {p.key() for ps in by_gang.values() if not ps[0].node_name
+               for p in ps}
+    return (len(by_gang), sum(1 for ps in by_gang.values()
+                              if ps[0].node_name), pending)
+
+
+def gangs_on_the_card(mods, card, gang_key):
+    """9a: gang_mix through both drain paths. Returns (launches summed,
+    max abs err per kernel)."""
+    kernels = mods[3]
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    for mode, (n_nodes, n_pods) in (("pipelined", (N_NODES, N_PODS)),
+                                    ("flush", GANG_FLUSH_SHAPE)):
+        spy = OperandSpy(kernels)
+        api, tot, cnt, wall, launches, _rr = gang_drain(
+            mods, n_nodes, n_pods, gang_pipeline=mode == "pipelined",
+            spy=spy)
+        n_g, n_bound_g, pending = audit_gangs(api, f"9a {mode}", gang_key)
+        bound, unbound = audit_store(api, "gang_mix", n_pods,
+                                     exempt=pending)
+        log(f"9a gang_mix {mode} {n_nodes} x {n_pods} (chunks of "
+            f"{GANG_CHUNK}): bound {bound}, unbound {unbound}, gangs "
+            f"{n_g} ({n_bound_g} wholly bound, {n_g - n_bound_g} wholly "
+            f"pending, 0 partial), wall {wall:.3f} s, "
+            f"gangmix_pods_s {tot['bound'] / wall:.1f} [{card}]")
+        log(f"9a {mode} totals {json.dumps(tot)} counters "
+            f"{json.dumps(cnt)}")
+        if mode == "pipelined":
+            if cnt["engine.gang_wave_dispatch"] <= 0:
+                fail("9a pipelined: no gang rode a wave")
+        elif cnt["engine.gang_wave_dispatch"] != 0:
+            fail("9a flush: a gang rode a wave in flush mode")
+        cap_shapes, inc_shapes = spy.shapes()
+        log(f"9a {mode} launches {launches}, shapes (capacity (C, N, R)) "
+            f"{cap_shapes}, (incidence (M, N, L)) {inc_shapes}")
+        for k in ("capacity_fit", "incidence_matmul"):
+            if launches[k] == 0:
+                fail(f"9a {mode}: no {k} launch")
+        for k, v in spy.check(f"9a {mode}").items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+        del api
+    return total, err
+
+
+def priority_world(hollow, n_nodes, per_node, n_more):
+    """Hollow nodes pre-filled with the first n_nodes * per_node pods of
+    the priority_churn profile, bound round-robin per_node to a node, and
+    the profile's next n_more pods (unbound)."""
+    nodes = hollow.hollow_nodes(n_nodes)
+    pool = hollow.PROFILES["priority_churn"](n_nodes * per_node + n_more)
+    fill = pool[:n_nodes * per_node]
+    for j, p in enumerate(fill):
+        p.node_name = nodes[j % n_nodes].name
+    return nodes, fill, pool[n_nodes * per_node:]
+
+
+def priority_stream(mods, n_nodes, per_node, total, rate, duration_s,
+                    drain_s, budget_ms, evict_fail_rate, evict_timeout_rate,
+                    max_evictions_per_min, spy=None):
+    """bench.py measure_priority_churn on the card: an overcommitted
+    mixed-band arrival stream through Scheduler.stream() behind
+    FaultyBindApi's eviction faults, with the PodPriority gate on, on a
+    cluster pre-filled per_node pods a node. Returns a report; fails on a
+    duplicate bind, a double eviction or ghost victim, or a 60 s window
+    past the budget."""
+    import contextlib
+    import threading
+    import numpy as np
+    import torch
+    (hollow, api_mod, Scheduler, kernels, COUNTERS, churn, preempt_wave,
+     features) = mods
+    features.DEFAULT_FEATURE_GATE.set("PodPriority", True)
+    try:
+        nodes, fill, pods = priority_world(hollow, n_nodes, per_node, total)
+        base = api_mod.ApiServerLite(max_log=max(
+            400_000, 6 * (n_nodes + total) + 2 * len(fill)))
+        hollow.load_cluster(base, nodes, fill)
+        api = churn.FaultyBindApi(base, seed=7,
+                                  evict_fail_rate=evict_fail_rate,
+                                  evict_timeout_rate=evict_timeout_rate)
+        sched = Scheduler(api, record_events=False)
+        sched.disruption_budget = preempt_wave.DisruptionBudget(
+            max_evictions_per_min=max_evictions_per_min)
+        sched.start()
+        loop = sched.stream(budget_s=budget_ms / 1e3, min_quantum=256,
+                            max_quantum=2048)
+        created, bind_events, plog = [0], [], []
+        agg = {"degraded_steps": 0, "preemptions": 0,
+               "preempt_rollbacks": 0, "victims_evicted": 0,
+               "budget_deferred": 0}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        COUNTERS.reset()
+        t0 = time.monotonic()
+        sched.wave_observer = lambda ts, keys: bind_events.append(
+            (ts - t0, keys))
+        sched.preempt_observer = lambda ts, lat, nv: plog.append(
+            (ts - t0, lat, nv))
+
+        def note(stats, _loop):
+            for k in agg:
+                agg[k] += stats.get(k, 0)
+
+        t_stop = t0 + duration_s + drain_s
+
+        def done(stats, _loop):
+            return created[0] >= total and time.monotonic() >= t_stop
+
+        th = threading.Thread(target=paced_create,
+                              args=(api, pods, rate, t0, created),
+                              daemon=True)
+        th.start()
+        with spy if spy is not None else contextlib.nullcontext():
+            try:
+                loop.run(done, on_step=note)
+            finally:
+                loop.close()
+            th.join(timeout=10)
+            sched.sync()
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        sched.wave_observer = None
+        sched.preempt_observer = None
+        launches = dict(kernels.LAUNCHES)
+        cnt = p9_counts(COUNTERS, P9_PREEMPT_COUNTERS)
+        spans = p9_spans(COUNTERS)
+        trans = churn.audit_store_transitions(base)
+        observed = {}
+        for _ts, keys in bind_events:
+            for k in keys:
+                observed[k] = observed.get(k, 0) + 1
+        dup = sum(max(0, c - trans["binds"].get(k, 0))
+                  for k, c in observed.items())
+        over_evicted = [k for k, c in trans["evicts"].items()
+                        if c > trans["binds"].get(k, 0)]
+        ghosts = churn.audit_cache_vs_store(sched, base)
+        window = preempt_wave.DisruptionBudget.WINDOW_S
+        evict_ts = sorted(t for t, _lat, nv in plog for _ in range(nv))
+        peak, j = 0, 0
+        for i, t in enumerate(evict_ts):
+            while evict_ts[j] <= t - window:
+                j += 1
+            peak = max(peak, i - j + 1)
+        store = base.list("Pod")[0]
+        if dup or over_evicted or ghosts or peak > max_evictions_per_min:
+            fail(f"priority stream {n_nodes} nodes: duplicate binds {dup}, "
+                 f"double evictions {len(over_evicted)}, ghosts "
+                 f"{ghosts[:5]}, budget window peak {peak}/"
+                 f"{max_evictions_per_min}")
+        bound_keys = {p.key() for p in store if p.node_name}
+        band_of = {v: k for k, v in hollow.PRIORITY_BANDS.items()}
+        band_tot, band_bnd = {}, {}
+        for p in pods:
+            b = band_of.get(p.priority, "other")
+            band_tot[b] = band_tot.get(b, 0) + 1
+            band_bnd[b] = band_bnd.get(b, 0) + (p.key() in bound_keys)
+        lats = np.array([lat for _t, lat, _nv in plog])
+        vics = np.array([nv for _t, _lat, nv in plog])
+        rep = {
+            "nodes": n_nodes, "prefilled": len(fill), "offered": total,
+            "wall_s": round(wall, 3), "stats": agg, "counters": cnt,
+            "launches": launches, "spans_ms": spans,
+            "band_bound_fraction": {b: round(band_bnd[b] / band_tot[b], 3)
+                                    for b in sorted(band_tot)},
+            "commits": len(plog),
+            "victims_per_preemption": round(float(vics.mean()), 3)
+            if len(plog) else None,
+            "preempt_latency_p50_ms": round(float(
+                np.percentile(lats, 50)) * 1e3, 3) if len(plog) else None,
+            "preempt_latency_p99_ms": round(float(
+                np.percentile(lats, 99)) * 1e3, 3) if len(plog) else None,
+            "budget_window_peak": peak,
+            "injected_evict_failures": api.injected_evict_failures,
+            "injected_evict_timeouts": api.injected_evict_timeouts,
+            "duplicate_binds": dup, "double_evictions": len(over_evicted),
+            "ghosts": len(ghosts)}
+        prio_dev = sched.engine._prio_dev
+        sched.engine.close()
+        return rep, prio_dev
+    finally:
+        features.DEFAULT_FEATURE_GATE.reset()
+
+
+def preemption_on_the_card(mods, card):
+    """9b: the priority stream at bench's 240 nodes, then at 5,000 nodes
+    pre-filled to 95%. Returns (launches summed, max abs err per kernel,
+    the 5,000-node engine's band tensors, the need rows of the profile's
+    bands)."""
+    kernels = mods[3]
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    prio_dev = None
+    for n_nodes, per_node, offered in (
+            (CHURN_NODES, 0, int(CHURN["rate"] * CHURN["duration_s"])),
+            (N_NODES, PRIO_FILL_PER_NODE, PRIO_STREAM)):
+        duration = offered / CHURN["rate"]
+        spy = OperandSpy(kernels)
+        rep, prio_dev = priority_stream(
+            mods, n_nodes, per_node, offered, CHURN["rate"], duration,
+            CHURN["drain_s"], CHURN["budget_ms"], CHURN["evict_fail_rate"],
+            CHURN["evict_timeout_rate"], CHURN["max_evictions_per_min"],
+            spy=spy)
+        tag = f"9b priority stream {n_nodes} nodes"
+        cnt = rep["counters"]
+        log(f"{tag}: {json.dumps(rep)} [{card}]")
+        if cnt["engine.preempt_scan_dispatch"] <= 0:
+            fail(f"{tag}: the victim scan never ran on the card")
+        if cnt["engine.preempt_scan_host_fallback"] != 0:
+            fail(f"{tag}: {cnt['engine.preempt_scan_host_fallback']} "
+                 f"rounds took the host pre-filter")
+        if rep["commits"] <= 0:
+            fail(f"{tag}: no preemption committed")
+        if rep["launches"]["capacity_fit"] == 0:
+            fail(f"{tag}: no capacity launch")
+        log(f"{tag}: preempt_scan_dispatch "
+            f"{cnt['engine.preempt_scan_dispatch']}, host fallback 0, "
+            f"commits {cnt['engine.preempt_commits']}, rollbacks "
+            f"{cnt['engine.preempt_rollbacks']}, deferrals "
+            f"{cnt['engine.preempt_budget_deferred']}, victims per "
+            f"preemption {rep['victims_per_preemption']}, latency p50 / "
+            f"p99 {rep['preempt_latency_p50_ms']} / "
+            f"{rep['preempt_latency_p99_ms']} ms, bands bound "
+            f"{rep['band_bound_fraction']}; audits clean")
+        for k, v in spy.check(tag).items():
+            err[k] = max(err[k], v)
+        for k, v in rep["launches"].items():
+            total[k] += v
+    return total, err, prio_dev
+
+
+def daemon_preemption(mods, n_nodes, n_pods, device=None, spy=None):
+    """9c: a SchedulerDaemon whose componentconfig turns PodPriority on,
+    over 5,000 hollow nodes filled with 20 priority_churn pods each (9b's
+    pre-fill plus one pod a node, so nothing fits) and n_pods pending pods
+    of the profile's prod and system bands; steps until a round binds and
+    preempts nothing. Returns (api, plans, report)."""
+    import contextlib
+    import torch
+    (hollow, api_mod, daemon, scheme, kernels, COUNTERS, features,
+     preemption) = mods
+    nodes, fill, rest = priority_world(hollow, n_nodes, 20, 10 * n_pods)
+    pending = [p for p in rest if p.priority >= 1000][:n_pods]
+    api = api_mod.ApiServerLite(max_log=max(200_000, 4 * len(fill)))
+    hollow.load_cluster(api, nodes, fill + pending)
+    cfg = scheme.DEFAULT_SCHEME.decode({
+        "apiVersion": "componentconfig/v1alpha1",
+        "kind": "KubeSchedulerConfiguration",
+        "featureGates": "PodPriority=true",
+        "leaderElection": {"leaderElect": False}})
+    for gate, val in cfg.feature_gates.items():
+        features.DEFAULT_FEATURE_GATE.set(gate, val)
+    opts = daemon.SchedulerOptions.from_component_config(cfg)
+    opts.healthz_port = None
+    clock = FakeClock()
+    plans = []
+    real_pick = preemption.pick_preemption
+
+    def pick(pod, infos, **kw):
+        plan = real_pick(pod, infos, **kw)
+        if plan is not None:
+            plans.append((pod.key(), pod.priority, plan.node_name,
+                          [(v.key(), v.priority) for v in plan.victims]))
+        return plan
+
+    preemption.pick_preemption = pick
+    d = None
+    try:
+        d = daemon.SchedulerDaemon(api, "daemon-p", opts, now=clock,
+                                   device=device)
+        on_card = device != "cpu"
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        COUNTERS.reset()
+        steps = []
+        with spy if spy is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for _ in range(12):
+                st = d.step()
+                steps.append(st)
+                clock.t += 61.0     # past every backoff (max 60 s)
+                if len(steps) > 1 and st["bound"] == 0 \
+                        and st.get("preemptions", 0) == 0:
+                    break
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rep = {"steps": steps, "wall": wall,
+               "launches": dict(kernels.LAUNCHES),
+               "spans_ms": p9_spans(COUNTERS),
+               "rr": d.scheduler.engine.rr.counter}
+    finally:
+        preemption.pick_preemption = real_pick
+        if d is not None:
+            d.stop()
+        features.DEFAULT_FEATURE_GATE.reset()
+    return api, plans, [p.key() for p in pending], rep
+
+
+def audit_daemon_preemption(api, plans, preemptors, tag):
+    """9c's audits: no victim at or above its preemptor's priority, no
+    victim in two plans, every victim gone from the store, every
+    preemptor bound or fitting nowhere even with every lower-priority pod
+    gone, no node over capacity, no pod bound twice."""
+    import numpy as np
+    seen = set()
+    for key, prio, _node, vics in plans:
+        for vk, vp in vics:
+            if vp >= prio:
+                fail(f"{tag}: victim {vk} ({vp}) of {key} ({prio})")
+            if vk in seen:
+                fail(f"{tag}: {vk} evicted by two plans")
+            seen.add(vk)
+    pods = api.list("Pod")[0]
+    by_key = {p.key(): p for p in pods}
+    if seen & set(by_key):
+        fail(f"{tag}: a victim is still in the store")
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    names = sorted(nodes)
+    idx = {n: i for i, n in enumerate(names)}
+    alloc = np.array([[nodes[n].allocatable.milli_cpu,
+                       nodes[n].allocatable.memory,
+                       nodes[n].allowed_pod_number] for n in names],
+                     dtype=np.int64)
+    bound = [p for p in pods if p.node_name]
+    prios = sorted({p.priority for p in pods})
+    # used[k]: per node usage by bound pods of priority >= prios[k]
+    used = {}
+    for k, pr in enumerate(prios):
+        u = np.zeros((len(names), 3), dtype=np.int64)
+        for p in bound:
+            if p.priority >= pr:
+                r = p.resource_request()
+                u[idx[p.node_name]] += (r.milli_cpu, r.memory, 1)
+        used[pr] = u
+    if (used[prios[0]] > alloc).any():
+        fail(f"{tag}: a node is over capacity")
+    n_bound = n_fit_nowhere = 0
+    for key in preemptors:
+        p = by_key[key]
+        if p.node_name:
+            n_bound += 1
+            continue
+        r = p.resource_request()
+        free = alloc - used[p.priority]
+        if ((free[:, 0] >= r.milli_cpu) & (free[:, 1] >= r.memory)
+                & (free[:, 2] >= 1)).any():
+            fail(f"{tag}: {key} is pending but fits with every "
+                 f"lower-priority pod gone")
+        n_fit_nowhere += 1
+    binds = {}
+    for e in api._log:
+        if e.kind == "Pod" and e.type == "MODIFIED" and e.obj.node_name:
+            binds[e.obj.key()] = binds.get(e.obj.key(), 0) + 1
+    if any(c > 1 for c in binds.values()):
+        fail(f"{tag}: a pod bound twice")
+    return n_bound, n_fit_nowhere, len(seen)
+
+
+def resident_equals_host(fast_ops, snap, dev_nodes, n_sets, seed):
+    """The card's sample_eval over the resident node tensors == the host
+    twin over the snapshot arrays, on n_sets seeded index sets of
+    SAMPLE_K rows. Returns n_sets."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nodes = {k: dev_nodes[k] for k in fast_ops.FAST_NODE_KEYS}
+    host = {k: np.asarray(getattr(snap, k)) for k in fast_ops.FAST_NODE_KEYS}
+    req = snap.resource_row(milli_cpu=100, memory=128 << 20, gpu=0,
+                            scratch=0, overlay=0, extended={}, up=True,
+                            width=snap.num_resources)
+    n = host["alloc"].shape[0]
+    for i in range(n_sets):
+        idx = rng.integers(0, n, size=SAMPLE_K).astype(np.int32)
+        got = fast_ops.sample_eval(idx, req, False, False, nodes).numpy()
+        want = fast_ops.sample_eval_host(idx, req, False, False, host)
+        if not np.array_equal(got, want):
+            fail(f"resident sample_eval set {i}: card {got}, host {want}")
+    return n_sets
+
+
+def fastlane_mixed(mods, card, n_nodes, rate, fast_rate, duration_s,
+                   budget_ms, probe_pods, spy=None):
+    """9d: bench.py measure_fastlane_mixed on the card — one always-on
+    loop with the fast lane armed, three windows (solo bulk, mixed bulk +
+    fast, fast-only probe). Before the probe the resident node tensors
+    are re-synced to the snapshot (as a fresh dispatch would), so the
+    probe's fast pods find the device current and idle; right then, just
+    after the mixed window's last harvest, the card's sample_eval over the
+    resident tensors must equal the host twin over the snapshot (the
+    upload and the gather are ordered on one stream). Returns (report,
+    launches, the scheduler for 9e)."""
+    import contextlib
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    (hollow, api_mod, Scheduler, kernels, COUNTERS, types, fl_mod,
+     fast_ops) = mods
+    budget_s = budget_ms / 1e3
+    total_bulk = int(rate * duration_s)
+    n_fast = int(fast_rate * duration_s)
+    need = 2 * total_bulk + n_fast + probe_pods + 64
+    n_nodes = max(n_nodes, -(-need // 36))
+    interval_s = min(1.0, max(0.25, round(duration_s / 4.0, 2)))
+    all_bulk = hollow.PROFILES["density"](2 * total_bulk)
+    solo_pods, mixed_pods = all_bulk[:total_bulk], all_bulk[total_bulk:]
+
+    def fast_pod(i):
+        p = types.make_pod(f"fastbench-{i}", cpu=100, memory=128 << 20)
+        p.annotations[fl_mod.FASTLANE_ANNOTATION] = "true"
+        return p
+
+    api = api_mod.ApiServerLite(max_log=max(200_000,
+                                            6 * (n_nodes + total_bulk)))
+    hollow.load_cluster(api, hollow.hollow_nodes(n_nodes), [])
+    sched = Scheduler(api, record_events=False)
+    sched.start()
+    loop = sched.stream(budget_s=budget_s, min_quantum=64, max_quantum=128,
+                        fastlane=True)
+    for q in (64, 128):
+        for p in hollow.PROFILES["density"](q):
+            p.name = f"prime{q}-" + p.name
+            api.create("Pod", p)
+        sched.sync()
+        loop.quantum = q
+        loop.step()
+    loop.quantum = 64
+    loop.drain()
+    bind_events, create_ts, fast_keys = [], {}, set()
+    sched.wave_observer = lambda ts, keys: bind_events.append((ts, keys))
+
+    def stamp(burst, ts):
+        for p in burst:
+            create_ts[p.key()] = ts
+
+    def offer_window(bulk, fasts):
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=paced_create,
+                                    args=(api, pods_, rate_, t0, [0], stamp),
+                                    daemon=True)
+                   for pods_, rate_ in ((bulk, rate), (fasts, fast_rate))
+                   if pods_]
+        expect = len(create_ts) + len(bulk) + len(fasts)
+        for t in threads:
+            t.start()
+        deadline = t0 + max(60.0, duration_s * 20)
+
+        def done(stats, lp):
+            if len(create_ts) >= expect and stats["popped"] == 0 \
+                    and lp.settled():
+                return True
+            if time.monotonic() > deadline:
+                fail("9d: a fast-lane window did not settle")
+            return False
+
+        loop.run(done)
+        for t in threads:
+            t.join(timeout=10)
+        return t0, max((create_ts[p.key()] for p in bulk + fasts),
+                       default=t0)
+
+    def bulk_sustained(t0, offer_end):
+        n_b = int((offer_end - t0) / interval_s) + 1
+        iv = [0] * n_b
+        for ts, keys in bind_events:
+            if t0 <= ts <= offer_end:
+                b = min(int((ts - t0) / interval_s), n_b - 1)
+                iv[b] += sum(1 for k in keys if k not in fast_keys
+                             and k in create_ts)
+        k_end = int((offer_end - t0) / interval_s)
+        steady = iv[1:k_end] if k_end > 1 else iv[:max(k_end, 1)]
+        return sorted(steady)[len(steady) // 2] / interval_s \
+            if steady else 0.0
+
+    def fl_counts():
+        return {k: v[0] for k, v in COUNTERS.snapshot().items()
+                if k.startswith("fastlane.")}
+
+    windows = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        with spy if spy is not None else contextlib.nullcontext():
+            t0, end = offer_window(solo_pods, [])
+            solo_rate = bulk_sustained(t0, end)
+            windows["solo"] = fl_counts()
+            fasts = [fast_pod(i) for i in range(n_fast)]
+            fast_keys.update(p.key() for p in fasts)
+            t0, end = offer_window(mixed_pods, fasts)
+            mixed_rate = bulk_sustained(t0, end)
+            windows["mixed"] = fl_counts()
+            sched.engine._refresh()
+            dev_nodes = sched.engine._nodes_on_device()
+            n_checked = resident_equals_host(fast_ops, sched.engine.snapshot,
+                                             dev_nodes, 64, seed=37)
+            c0 = {k: v[0] for k, v in COUNTERS.snapshot().items()}
+            probes = [fast_pod(n_fast + i) for i in range(probe_pods)]
+            fast_keys.update(p.key() for p in probes)
+            offer_window([], probes)
+            c1 = {k: v[0] for k, v in COUNTERS.snapshot().items()}
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    sched.wave_observer = None
+    loop.close()
+
+    def delta(name):
+        return int(c1.get(name, 0) - c0.get(name, 0))
+
+    fast_lat, dup, seen = [], 0, set()
+    for ts, keys in bind_events:
+        for k in keys:
+            if k in seen:
+                dup += 1
+                continue
+            seen.add(k)
+            if k in fast_keys and k in create_ts:
+                fast_lat.append(ts - create_ts[k])
+    lat = np.asarray(fast_lat)
+    unplaced = sum(1 for p in api.list("Pod")[0] if not p.node_name)
+    fl = fl_counts()
+    outcomes = sum(fl.get(k, 0) for k in (
+        "fastlane.bound", "fastlane.fell_back", "fastlane.bind_error",
+        "fastlane.superseded"))
+    rep = {
+        "nodes": n_nodes, "fast_pods": len(fast_keys),
+        "p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3)
+        if lat.size else None,
+        "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3)
+        if lat.size else None,
+        "solo_bulk_sustained_pods_s": round(solo_rate, 1),
+        "mixed_bulk_sustained_pods_s": round(mixed_rate, 1),
+        "mixed_bulk_sustained": round(mixed_rate / solo_rate, 3)
+        if solo_rate else None,
+        "counters": fl,
+        "dispatch_by_window": {
+            "solo": {k: windows["solo"].get(k, 0) for k in (
+                "fastlane.dispatch_device", "fastlane.dispatch_host")},
+            "mixed": {k: windows["mixed"].get(k, 0) - windows["solo"].get(
+                k, 0) for k in ("fastlane.dispatch_device",
+                                "fastlane.dispatch_host")},
+            "probe": {k: delta(k) for k in ("fastlane.dispatch_device",
+                                            "fastlane.dispatch_host")}},
+        "probe_deltas": {k: delta(k) for k in (
+            "engine.wave_encode_build", "snapshot.refresh_rebuild",
+            "snapshot.refresh_scan", "engine.wave_dispatch")},
+        "outcomes": outcomes, "duplicate_binds": dup, "unplaced": unplaced,
+        "spans_ms": p9_spans(COUNTERS)}
+    if dup or unplaced:
+        fail(f"9d: {dup} duplicate binds, {unplaced} pods unplaced")
+    if outcomes != len(fast_keys):
+        fail(f"9d: outcome counters {outcomes} != {len(fast_keys)} fast "
+             f"pods")
+    if rep["dispatch_by_window"]["probe"]["fastlane.dispatch_device"] <= 0:
+        fail("9d: no fast-lane eval ran on the card in the probe window")
+    if any(rep["probe_deltas"][k] for k in ("engine.wave_encode_build",
+                                            "snapshot.refresh_rebuild",
+                                            "snapshot.refresh_scan")):
+        fail(f"9d: the probe window was not delta-free "
+             f"{rep['probe_deltas']}")
+    log(f"9d fast lane {n_nodes} nodes: {json.dumps(rep)} [{card}]")
+    log(f"9d: right after the mixed window's last harvest, the card's "
+        f"sample_eval over the re-synced resident tensors == the host twin "
+        f"over the snapshot on {n_checked} index sets")
+    return rep, launches, sched
+
+
+def gang_card_vs_cpu(mods):
+    """9e: gang_mix at 512 x 3,000 in chunks of 512, pipelined with
+    overlap on and off and in flush mode, on the card and on the CPU:
+    placements and RR counters agree."""
+    n_nodes, n_pods = CHECK_SHAPE
+    runs = {}
+    for mode, overlap in (("pipelined", True), ("overlap off", False),
+                          ("flush", True)):
+        for dev in (None, "cpu"):
+            api, tot, cnt, wall, _l, rr = gang_drain(
+                mods, n_nodes, n_pods, gang_pipeline=mode != "flush",
+                device=dev, overlap=overlap, chunk=512)
+            runs[(mode, dev)] = (_placed(api), rr, tot["bound"])
+        got, want = runs[(mode, None)], runs[(mode, "cpu")]
+        diff = sum(got[0][k] != v for k, v in want[0].items())
+        if diff or got[1:] != want[1:]:
+            fail(f"9e gang_mix {mode}: card != CPU ({diff} placements; "
+                 f"{got[1:]} vs {want[1:]})")
+        log(f"9e gang_mix {n_nodes} x {n_pods} {mode}: card == CPU "
+            f"({want[2]} bound, RR counter {want[1]})")
+
+
+def preempt_card_vs_cpu(mods, dmods):
+    """9e: on a 512-node store filled with 20 priority_churn pods a node,
+    preempt_scan's candidate and bound and plan_wave_preemptions' plans
+    agree between a card engine and a CPU engine on the same snapshot,
+    and so do the classic _preempt_round's plans and placements through
+    the daemon."""
+    import numpy as np
+    (hollow, cache_mod, SchedulingEngine, preempt_wave) = mods
+    nodes, fill, rest = priority_world(hollow, 512, 20, 2000)
+    cache = cache_mod.SchedulerCache()
+    for n in nodes:
+        cache.add_node(n)
+    for p in fill:
+        cache.add_pod(p)
+    preemptors = [p for p in rest if p.priority > 0][:96]
+    out = {}
+    for dev in (None, "cpu"):
+        eng = SchedulingEngine(cache, device=dev)
+        eng._refresh()
+        cand, bound, class_of = eng.preempt_scan(preemptors)
+        plans = [(pl.pod.key(), pl.node_name,
+                  sorted(v.key() for v in pl.victims))
+                 for pl in preempt_wave.plan_wave_preemptions(
+                     eng, preemptors)]
+        out[dev] = (cand, bound, class_of, plans)
+        eng.close()
+    (c1, b1, k1, p1), (c2, b2, k2, p2) = out[None], out["cpu"]
+    if not (np.array_equal(c1, c2) and np.array_equal(b1, b2)
+            and k1 == k2 and p1 == p2):
+        fail("9e preempt_scan / plan_wave_preemptions: card != CPU")
+    if not p1 or not c1.any():
+        fail("9e preempt_scan: no candidate, no plan")
+    log(f"9e preempt_scan 512 nodes x {len(fill)} bound, "
+        f"{len(preemptors)} preemptors: card == CPU (candidate "
+        f"{tuple(c1.shape)}, {int(c1.sum())} set; {len(p1)} wave plans, "
+        f"{sum(len(v) for _k, _n, v in p1)} victims)")
+    runs = {}
+    for dev in (None, "cpu"):
+        api, plans, pre, rep = daemon_preemption(dmods, 512, 64,
+                                                 device=dev)
+        audit_daemon_preemption(api, plans, pre, f"9e daemon ({dev})")
+        runs[dev] = (plans, _placed(api), rep["rr"])
+    if runs[None] != runs["cpu"]:
+        fail("9e classic _preempt_round: card != CPU")
+    log(f"9e classic _preempt_round 512 nodes, 64 preemptors: card == CPU "
+        f"({len(runs['cpu'][0])} plans, "
+        f"{sum(len(v) for *_x, v in runs['cpu'][0])} victims)")
+
+
+def sample_eval_card_vs_cpu(fast_ops, sched):
+    """9e: sample_eval on the card == the CPU torch version == the host
+    twin over the 5,000-node resident tensors of 9d, for SAMPLE_SETS
+    seeded index sets: duplicates (ties), requests that fit nowhere, zero
+    requests and best-effort pods, on the live rows and on a copy with
+    pressured, tainted and cordoned rows."""
+    import numpy as np
+    import torch
+    eng = sched.engine
+    snap = eng.snapshot
+    eng._refresh()
+    dev = eng._nodes_on_device()
+    live = {k: dev[k] for k in fast_ops.FAST_NODE_KEYS}
+    host_live = {k: np.array(getattr(snap, k)) for k in
+                 fast_ops.FAST_NODE_KEYS}
+    rng = np.random.default_rng(29)
+    n = host_live["alloc"].shape[0]
+    host_p = {k: v.copy() for k, v in host_live.items()}
+    host_p["mem_pressure"] |= rng.random(n) < 0.2
+    host_p["disk_pressure"] |= rng.random(n) < 0.1
+    host_p["schedulable"] &= rng.random(n) > 0.05
+    t = host_p["taints_sched"]
+    if t.shape[1]:
+        t[rng.random(n) < 0.1, 0] = True
+    pressured = {k: torch.from_numpy(v.copy()).to(live["alloc"].device)
+                 for k, v in host_p.items()}
+    reqs = []
+    for cpu, mem in ((100, 128 << 20), (5000, 1 << 30), (0, 0),
+                     (2000, 1 << 30)):
+        reqs.append(snap.resource_row(
+            milli_cpu=cpu, memory=mem, gpu=0, scratch=0, overlay=0,
+            extended={}, up=True, width=snap.num_resources))
+    n_fit = n_unfit = 0
+    for i in range(SAMPLE_SETS):
+        if i % 3 == 2:
+            nodes_d, nodes_h = pressured, host_p
+        else:
+            nodes_d, nodes_h = live, host_live
+        k = SAMPLE_K if i % 5 else 4
+        idx = rng.integers(0, n, size=k).astype(np.int32)
+        if i % 7 == 0:
+            idx[1::2] = idx[0]           # ties
+        req = reqs[i % len(reqs)]
+        zero = i % len(reqs) == 2
+        be = i % 2 == 0
+        card_out = fast_ops.sample_eval(idx, req, zero, be, nodes_d).numpy()
+        cpu_out = fast_ops.sample_eval(
+            idx, req, zero, be,
+            {k: v.cpu() for k, v in nodes_d.items()}).numpy()
+        host_out = fast_ops.sample_eval_host(idx, req, zero, be, nodes_h)
+        if not (np.array_equal(card_out, cpu_out)
+                and np.array_equal(card_out, host_out)):
+            fail(f"9e sample_eval set {i}: card {card_out}, CPU {cpu_out}, "
+                 f"host {host_out}")
+        if card_out[1] > 0:
+            n_fit += 1
+        else:
+            n_unfit += 1
+    if not n_fit or not n_unfit:
+        fail(f"9e sample_eval: {n_fit} sets with a fit, {n_unfit} without")
+    log(f"9e sample_eval: card == CPU == host twin on {SAMPLE_SETS} index "
+        f"sets over {n} resident rows ({n_fit} with a fit, {n_unfit} all "
+        f"unfit)")
+    return live, reqs[0]
+
+
+def time_device_functions(preempt_ops, fast_ops, prio_dev, nodes, req):
+    """Card times of the two PyTorch device functions at their main-path
+    shapes, beside their bounds: victim_scan at 9b's 5,000-node band
+    tensors with the profile's four band classes padded to C = 4, and
+    sample_eval at k = 16 over 9d's resident tensors."""
+    import numpy as np
+    import torch
+    d = prio_dev
+    n_nodes, b = d["band_cpu"].shape
+    dev = d["band_cpu"].device
+    need = torch.full((4,), 200, dtype=torch.int32, device=dev)
+    need_mem = torch.full((4,), (256 << 20) >> 10, dtype=torch.int32,
+                          device=dev)
+    prio = torch.tensor([0, 100, 1000, 10000], dtype=torch.int32,
+                        device=dev)
+    args = (need, need_mem, prio, d["spare_cpu"], d["spare_mem"],
+            d["pod_count"], d["allowed"], d["band_cpu"], d["band_mem"],
+            d["band_count"], d["band_prio"])
+    c = 4
+    vs_bytes = 3 * c * 4 + 4 * n_nodes * 4 + 3 * n_nodes * b * 4 + b * 4 \
+        + c * n_nodes * (1 + 4)
+    vs_ops = 3 * 2 * n_nodes * b * b + 12 * c * n_nodes * b
+    vs_bound = max(vs_bytes / HBM_BYTES_PER_S,
+                   vs_ops / CUDA_CORE_OPS_PER_S) * 1e3
+    vs = {"shape": [c, n_nodes, b],
+          "ms": time_ms(lambda: preempt_ops.victim_scan(*args)),
+          "device_ms": time_device_ms(
+              lambda: preempt_ops.victim_scan(*args), reps=10),
+          "bound_ms": vs_bound,
+          "bound_by": "bytes" if vs_bytes / HBM_BYTES_PER_S
+          >= vs_ops / CUDA_CORE_OPS_PER_S else "operations"}
+    cpu_args = tuple(a.cpu() for a in args)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        preempt_ops.victim_scan(*cpu_args)
+    vs["cpu_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    rng = np.random.default_rng(31)
+    idx = rng.integers(0, nodes["alloc"].shape[0],
+                       size=SAMPLE_K).astype(np.int32)
+    k, r = SAMPLE_K, int(nodes["alloc"].shape[1])
+    t_w = int(nodes["taints_sched"].shape[1])
+    se_bytes = k * 8 + r * 4 + k * (2 * r * 4 + 2 * 4 + 4 + t_w) + 3 * 4
+    idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
+    req_d = torch.from_numpy(np.asarray(req, dtype=np.int32)).to(dev)
+    se = {"k": k, "n": int(nodes["alloc"].shape[0]),
+          "ms": time_ms(lambda: fast_ops.sample_eval(idx, req, False, False,
+                                                     nodes)),
+          "device_ms": time_device_ms(lambda: fast_ops.sample_eval_device(
+              idx_d, req_d, False, False, nodes), reps=10),
+          "bound_ms": se_bytes / HBM_BYTES_PER_S * 1e3,
+          "bound_by": "bytes"}
+    host_nodes = {kk: v.cpu().numpy() for kk, v in nodes.items()}
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fast_ops.sample_eval_host(idx, req, False, False, host_nodes)
+    se["host_twin_ms"] = 1e3 * (time.perf_counter() - t0) / 200
+    log("device functions: " + json.dumps({"victim_scan": vs,
+                                           "sample_eval": se}))
+    return vs, se
+
+
+def the_slice(mods, card):
+    """Phase 9: gangs, PodPriority preemption and the fast lane on the
+    card. Returns (launches summed over 9a-9d, max abs err per kernel)."""
+    t_phase = time.perf_counter()
+    (hollow, types, api_mod, Scheduler, daemon, scheme, kernels, COUNTERS,
+     churn, preempt_wave, preemption, features, gang, fl_mod, fast_ops,
+     preempt_ops, cache_mod, SchedulingEngine) = mods
+    smods = (hollow, api_mod, Scheduler, kernels, COUNTERS)
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+
+    def add(launches, errs):
+        for k, v in launches.items():
+            total[k] += v
+        for k, v in errs.items():
+            err[k] = max(err[k], v)
+
+    t = time.perf_counter()
+    add(*gangs_on_the_card(smods, card, gang.GANG_NAME_ANNOTATION))
+    log(f"9a took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches, errs, prio_dev = preemption_on_the_card(
+        (hollow, api_mod, Scheduler, kernels, COUNTERS, churn,
+         preempt_wave, features), card)
+    add(launches, errs)
+    log(f"9b took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dmods = (hollow, api_mod, daemon, scheme, kernels, COUNTERS, features,
+             preemption)
+    spy = OperandSpy(kernels)
+    api, plans, pre, rep = daemon_preemption(dmods, N_NODES,
+                                             PRIO_DAEMON_PODS, spy=spy)
+    n_bound, n_nowhere, n_vics = audit_daemon_preemption(api, plans, pre,
+                                                         "9c daemon")
+    del api
+    log(f"9c daemon, PodPriority on, {N_NODES} full nodes + "
+        f"{PRIO_DAEMON_PODS} prod/system pods: {len(rep['steps'])} steps "
+        f"{json.dumps(rep['steps'])} in {rep['wall']:.3f} s; {len(plans)} "
+        f"plans, {n_vics} victims, preemptors bound {n_bound}, fitting "
+        f"nowhere {n_nowhere}; audits clean [{card}]; spans (ms) "
+        f"{json.dumps(rep['spans_ms'])}")
+    if not plans or not n_bound:
+        fail("9c: the classic round preempted or bound nothing")
+    if rep["launches"]["capacity_fit"] == 0:
+        fail("9c: no capacity launch")
+    add(rep["launches"], spy.check("9c daemon"))
+    log(f"9c launches {rep['launches']}; 9c took "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spy = OperandSpy(kernels)
+    frep, launches, fsched = fastlane_mixed(
+        (hollow, api_mod, Scheduler, kernels, COUNTERS, types, fl_mod,
+         fast_ops), card, spy=spy, **FASTLANE)
+    if launches["capacity_fit"] == 0:
+        fail("9d: no capacity launch")
+    add(launches, spy.check("9d fast lane"))
+    log(f"9d launches {launches}; 9d took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    gang_card_vs_cpu(smods)
+    preempt_card_vs_cpu((hollow, cache_mod, SchedulingEngine, preempt_wave),
+                        dmods)
+    nodes, req = sample_eval_card_vs_cpu(fast_ops, fsched)
+    log(f"9e took {time.perf_counter() - t:.1f} s")
+    vs, se = time_device_functions(preempt_ops, fast_ops, prio_dev, nodes,
+                                   req)
+    fsched.engine.close()
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return total, err, {"victim_scan": vs, "sample_eval": se}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1860,17 +2845,24 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from kubernetes_tpu_torch.api import policy as policy_mod
-        from kubernetes_tpu_torch.api import serde, types, workloads
+        from kubernetes_tpu_torch.api import scheme, serde, types, workloads
+        from kubernetes_tpu_torch.engine import fastlane as fl_mod
+        from kubernetes_tpu_torch.engine import (gang, preempt_wave,
+                                                 preemption)
         from kubernetes_tpu_torch.engine.scheduler import Scheduler
         from kubernetes_tpu_torch.engine.scheduler_engine import (
             SchedulingEngine, evaluate_pod)
         from kubernetes_tpu_torch.models import hollow
         from kubernetes_tpu_torch.ops import affinity, kernels
+        from kubernetes_tpu_torch.ops import fastlane as fast_ops
+        from kubernetes_tpu_torch.ops import preempt as preempt_ops
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
         from kubernetes_tpu_torch.server import (apiserver_lite, daemon,
                                                  extender)
+        from kubernetes_tpu_torch.state import cache as cache_mod
         from kubernetes_tpu_torch.state.classes import ClassBatch
         from kubernetes_tpu_torch.testing import churn
+        from kubernetes_tpu_torch.utils import features
         from kubernetes_tpu_torch.utils.trace import COUNTERS
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
@@ -1941,7 +2933,15 @@ def main() -> int:
     for k, v in err_p8.items():
         max_err[k] = max(max_err[k], v)
 
-    # 9. summary
+    # 9. gangs, PodPriority preemption and the fast lane
+    launches_p9, err_p9, dev_fns = the_slice(
+        (hollow, types, apiserver_lite, Scheduler, daemon, scheme, kernels,
+         COUNTERS, churn, preempt_wave, preemption, features, gang, fl_mod,
+         fast_ops, preempt_ops, cache_mod, SchedulingEngine), card)
+    for k, v in err_p9.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 10. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -1953,7 +2953,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (launches_drain[name] + launches_eval[name]
                          + launches_pipe[name] + launches_ext[name]
-                         + launches_p8[name]),
+                         + launches_p8[name] + launches_p9[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1966,7 +2966,10 @@ def main() -> int:
                         "library_ms", "bound_ms", "shape")}})
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
         f"pipelined drains {launches_pipe}, extender {launches_ext}, "
-        f"daemon and Policy {launches_p8}")
+        f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
+        f"lane {launches_p9}")
+    log("device functions (PyTorch ops, not kernels): "
+        + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

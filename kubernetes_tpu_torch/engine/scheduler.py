@@ -27,11 +27,18 @@ Two drain modes:
   their masks per wave from device-resident topology occupancy, routes
   counter-inexpressible shapes to a seeded strict tail inside the harvest
   (a conflict-round loop), and the fence re-validates topology occupancy
-  the same way it re-validates capacity.
+  the same way it re-validates capacity. Quorum-ready GANGS ride the
+  waves as ordinary batch rows and the harvest applies an all-or-nothing
+  gang fence — below quorum, every member is dropped BEFORE anything is
+  assumed (atomic rollback, zero residue) and requeues with backoff.
+  With the PodPriority gate on, the harvest's unschedulable preemptors
+  get a wave-path preemption round (device victim scan, exact
+  verification, the store's atomic evict+bind).
+- stream(fastlane=...): the always-on loop with the Sparrow fast tier
+  (engine/fastlane.py) for latency-critical pods between micro-waves.
 
-What later slices of the port bring raises NotImplementedError naming its
-ROADMAP item by title: gangs, PodPriority preemption, stream()'s fast lane
-and a mesh.
+A mesh (node-axis sharding across several cards) is a later slice of the
+port and raises NotImplementedError naming its ROADMAP item by title.
 
 Error paths preserved:
 
@@ -56,9 +63,12 @@ from typing import Dict, List, Optional, Tuple
 from kubernetes_tpu_torch.api.types import Binding, Event, Node, Pod
 from kubernetes_tpu_torch.api.workloads import to_workload_object
 from kubernetes_tpu_torch.engine import gang as gangmod
+from kubernetes_tpu_torch.engine.preempt_wave import (
+    DisruptionBudget,
+    plan_wave_preemptions,
+)
 from kubernetes_tpu_torch.engine.queue import SchedulingQueue
 from kubernetes_tpu_torch.engine.scheduler_engine import (
-    GANG_SLICE,
     PlacementResult,
     SchedulingEngine,
 )
@@ -73,6 +83,7 @@ from kubernetes_tpu_torch.ops import priorities as prio
 from kubernetes_tpu_torch.ops.policy_algos import algorithms_from_policy
 from kubernetes_tpu_torch.server.apiserver_lite import (
     ApiServerLite,
+    NotFound,
     TooOldResourceVersion,
 )
 from kubernetes_tpu_torch.state.cache import SchedulerCache
@@ -81,9 +92,6 @@ from kubernetes_tpu_torch.utils.metrics import SchedulerMetrics
 from kubernetes_tpu_torch.utils.trace import SCHEDULE_TRACE_THRESHOLD_S, Trace
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
-PREEMPT_SLICE = ("PodPriority preemption (engine/preemption.py, "
-                 "engine/preempt_wave.py), ROADMAP §1 'PodPriority "
-                 "preemption' of the port")
 MESH_SLICE = ("mesh sharding across several cards (parallel/mesh.py, "
               "_waves_loop_spmd), ROADMAP §1 'Node-axis sharding across "
               "several cards' of the port")
@@ -166,8 +174,7 @@ class Scheduler:
         # PodDisruptionBudget-shaped eviction rate limit: sliding
         # max-evictions-per-minute window plus optional per-band floors;
         # denied plans count budget_deferred and wait out their backoff.
-        # (the budget arrives with the preemption slice)
-        self.disruption_budget = None
+        self.disruption_budget = DisruptionBudget(now=now)
         # bench hook: preempt_observer(commit_monotonic, latency_s,
         # victim_count) after every committed preemption. None = off.
         self.preempt_observer = None
@@ -541,8 +548,6 @@ class Scheduler:
         # once their quorum is in the queue (engine/gang.py); incomplete
         # gangs park in _gang_waiting until members arrive
         plain, gangs = gangmod.partition(pods)
-        if gangs:
-            raise NotImplementedError(GANG_SLICE)
         self._sweep_parked_gangs(gangs)
         if not pods:
             self._idle_gc()
@@ -727,20 +732,79 @@ class Scheduler:
 
     def _preempt_round(self, unschedulable: List[Pod]) -> int:
         """Preemption pass (1.8 generic_scheduler.Preempt, feature-gated
-        behind PodPriority like kube_features.go:122). The reference
-        plans a victim set for every unschedulable pod of priority > 0;
-        the port refuses such a round (a later slice)."""
-        if any(p.priority > 0 for p in unschedulable):
-            raise NotImplementedError(PREEMPT_SLICE)
-        return 0
+        behind PodPriority like kube_features.go:122): for each
+        unschedulable pod, highest priority first, pick a node + minimal
+        victim set (engine/preemption.py) and evict the victims. The
+        preemptor is already requeued; once the victims' DELETED events
+        drain through sync(), the freed capacity places it in a following
+        round (the nominate-then-reschedule flow)."""
+        from kubernetes_tpu_torch.engine import preemption as preemptmod
+        from kubernetes_tpu_torch.ops.oracle_ext import SchedulingContext
+        # clones: the victim bookkeeping below must not mutate the live
+        # cache (the DELETED watch events do that authoritatively)
+        infos = self.cache.snapshot_infos()
+        # full predicate context: without it the feasibility check would
+        # ignore inter-pod affinity / volumes / policy algorithms and
+        # evict victims that free nothing for the preemptor. Victims stay
+        # in ctx.infos during the check — conservative: a node whose
+        # feasibility depends on a victim's own anti-affinity going away
+        # is skipped rather than over-evicted.
+        ctx = SchedulingContext(
+            infos, self.engine.workloads_provider(),
+            hard_pod_affinity_weight=self.engine.hard_pod_affinity_weight,
+            volume_ctx=self.engine.volume_ctx,
+            policy_algos=self.engine.policy_algos)
+        count = 0
+        # lazy: a round whose unschedulable pods are all priority 0 (the
+        # default) must not pay the O(total pods) array build
+        state = None
+        for pod in sorted(unschedulable, key=lambda p: -p.priority):
+            if pod.priority <= 0:
+                break  # sorted desc: nothing below can preempt either
+            if state is None:
+                state = preemptmod.PreemptionState(infos)
+            plan = preemptmod.pick_preemption(pod, infos, ctx=ctx,
+                                              state=state)
+            if plan is None:
+                continue
+            if TRACER.enabled and plan.victims:
+                TRACER.evicted_batch([v.key() for v in plan.victims])
+            for vic in plan.victims:
+                try:
+                    self.api.delete("Pod", vic.namespace, vic.name)
+                except NotFound:
+                    pass
+                self._event(vic, "Normal", "Preempted",
+                            f"by {pod.key()} on node {plan.node_name}")
+                # reflect the eviction in the local view immediately so a
+                # second preemptor this round does not double-count the
+                # same victims
+                info = infos.get(plan.node_name)
+                if info is not None:
+                    info.remove_pod(vic)
+            # reserve the freed capacity for THIS preemptor in the local
+            # view (the 1.8 nominated-pod reservation): a second
+            # preemptor this round must not plan into the same hole and
+            # over-evict
+            info = infos.get(plan.node_name)
+            if info is not None:
+                info.add_pod(pod)
+            state.apply_plan(plan, pod)
+            self._event(pod, "Normal", "TriggeredPreemption",
+                        f"{len(plan.victims)} lower-priority pod(s) on "
+                        f"{plan.node_name} evicted")
+            count += 1
+        return count
 
     # ------------------------------------------------------ pipelined drain
 
     def _wave_eligible(self, pods: List[Pod]) -> bool:
         """Cheap host-side gate before dispatch: with gang_pipeline off,
-        gang-bearing chunks flush to the classic round (the reference's
-        A/B baseline). In the port a gang raises NotImplementedError on
-        either path (a later slice)."""
+        gang-bearing chunks flush to the classic round (the A/B
+        baseline). No chunk SHAPE is host-gated: required
+        (anti-)affinity, gangs, host-check, and Policy classes all ride
+        the wave path; the engine returns None only for the gang-quorum-
+        unreachable corner, which the caller flushes per chunk."""
         if self.gang_pipeline:
             return True
         return all(gangmod.gang_name(p) is None for p in pods)
@@ -756,8 +820,6 @@ class Scheduler:
         at or before this chunk's plain pods, and trailing them would let
         a sustained plain stream starve contended gangs."""
         plain, gangs = gangmod.partition(pods)
-        if gangs:
-            raise NotImplementedError(GANG_SLICE)
         self._sweep_parked_gangs(gangs)
         if not gangs:
             return plain, None
@@ -939,11 +1001,127 @@ class Scheduler:
 
     def _preempt_wave(self, preemptors: List[Pod],
                       wave_id: int = -1) -> Dict[str, int]:
-        """One wave-path preemption round (the reference plans
-        displacements against the snapshot's priority bands and commits
-        them through the store's atomic evict+bind): a later slice of the
-        port."""
-        raise NotImplementedError(PREEMPT_SLICE)
+        """One wave-path preemption round: plan displacements
+        for this harvest's unschedulable preemptors (device victim scan +
+        exact verification, engine/preempt_wave.py), rate-limit them
+        through the disruption budget, and COMMIT each survivor through
+        the store's atomic evict+bind:
+
+        - success: victims leave the cache immediately (their watch
+          MODIFIED-unbound events re-enter them as ordinary arrivals the
+          streaming loop absorbs), the preemptor assumes + finishes
+          binding exactly like a fenced wave placement — either EVERY
+          victim eviction landed AND the preemptor bound, or nothing did;
+        - error: rollback — the preemptor stays on the backoff requeue
+          _complete_wave already gave it, local state untouched. If the
+          error hid a landed commit (the at-most-once ambiguity the
+          injected eviction TIMEOUT reproduces), the watch stream heals:
+          sync() runs before every pop, so the preemptor's confirmation
+          removes it from the queue before any retry could double-bind.
+
+        Victims are restricted to store-confirmed bound pods (an assumed
+        claim is unbound at the store; planning it would abort commits)."""
+        from kubernetes_tpu_torch.utils.trace import COUNTERS
+
+        out = {"preemptions": 0, "preempt_rollbacks": 0,
+               "victims_evicted": 0, "budget_deferred": 0}
+        api_op = getattr(self.api, "preempt_pods_bulk", None)
+        if api_op is None:
+            return out  # store cannot commit atomically: no wave path
+        t_plan = time.monotonic()
+        pods_map = self._pods
+
+        def _evictable(p: Pod) -> bool:
+            q = pods_map.get(p.key())
+            return q is not None and bool(q.node_name)
+
+        plans = plan_wave_preemptions(
+            self.engine, preemptors, evictable=_evictable,
+            workloads=self.engine.workloads_provider())
+        if RECORDER.enabled:
+            RECORDER.record(flightrec.PREEMPT_PROPOSE, wave=wave_id,
+                            t0=t_plan, dur=time.monotonic() - t_plan,
+                            a=len(preemptors), b=len(plans))
+        if not plans:
+            return out
+        budget = self.disruption_budget
+        band_counts = self.engine.snapshot.band_bound_counts() \
+            if budget.band_floor else None
+        record = self.record_events
+        snap_index = self.engine.snapshot.node_index
+        for plan in plans:
+            pod = plan.pod
+            if not budget.admit(plan.victims, band_counts):
+                out["budget_deferred"] += 1
+                COUNTERS.inc("engine.preempt_budget_deferred")
+                if record:
+                    self._event(pod, "Normal", "PreemptionDeferred",
+                                "disruption budget exhausted")
+                continue
+            err = api_op(plan.victims,
+                         Binding(pod.name, pod.namespace, pod.uid,
+                                 plan.node_name))
+            if err is not None:
+                out["preempt_rollbacks"] += 1
+                COUNTERS.inc("engine.preempt_rollbacks")
+                if record:
+                    self._event(pod, "Warning", "FailedPreemption", err)
+                if RECORDER.enabled:
+                    RECORDER.record(flightrec.PREEMPT_ROLLBACK,
+                                    wave=wave_id, a=len(plan.victims),
+                                    b=int("landed" in err))
+                continue
+            bind_done = time.monotonic()
+            key = pod.key()
+            # victims leave the cache NOW — the store op landed, and
+            # phantom occupancy would hide the freed hole from the next
+            # wave; the watch handlers re-apply both sides idempotently
+            for vic in plan.victims:
+                self.cache.remove_pod(vic)
+                if record:
+                    self._event(vic, "Normal", "Preempted",
+                                f"by {key} on node {plan.node_name}")
+            if TRACER.enabled:
+                TRACER.evicted_batch([v.key() for v in plan.victims],
+                                     t0=bind_done)
+            self.queue.remove(key)  # it was backoff-requeued above
+            pod.node_name = plan.node_name
+            self.cache.assume_pod(pod)
+            self.cache.finish_binding(pod)
+            self.engine.note_node_dirty(plan.node_name)
+            self.metrics.scheduled.inc(1)
+            lat = bind_done - self._first_queued.pop(key, t_plan)
+            self.metrics.create_to_bound.observe_batch([lat])
+            if SLO.enabled:
+                SLO.observe_batch([lat], t=bind_done)
+            if TRACER.enabled:
+                TRACER.bound_batch([key], t0=bind_done)
+            if self.wave_observer is not None:
+                self.wave_observer(bind_done, [key])
+            out["preemptions"] += 1
+            out["victims_evicted"] += len(plan.victims)
+            COUNTERS.inc("engine.preempt_commits")
+            COUNTERS.inc("engine.victims_evicted", len(plan.victims))
+            if record:
+                self._event(pod, "Normal", "TriggeredPreemption",
+                            f"{len(plan.victims)} lower-priority pod(s) "
+                            f"on {plan.node_name} evicted")
+            if self.preempt_observer is not None:
+                self.preempt_observer(bind_done, bind_done - t_plan,
+                                      len(plan.victims))
+            if RECORDER.enabled:
+                RECORDER.record(flightrec.PREEMPT_COMMIT, wave=wave_id,
+                                t0=t_plan, dur=bind_done - t_plan,
+                                a=len(plan.victims),
+                                b=snap_index.get(plan.node_name, -1))
+                RECORDER.record(flightrec.VICTIM_REQUEUE, wave=wave_id,
+                                a=len(plan.victims),
+                                b=min(v.priority for v in plan.victims))
+            if band_counts is not None:
+                for v in plan.victims:
+                    band_counts[v.priority] = \
+                        band_counts.get(v.priority, 1) - 1
+        return out
 
     def pipeline(self, chunk: int = 0, overlap: bool = True):
         """A live two-stage drain pipeline: the FIXED-chunk mode
@@ -991,10 +1169,14 @@ class Scheduler:
         latency-critical pods bypass the micro-wave quantum through a
         sampled [1, k] eval + late-bind fence (engine/fastlane.py). Pass
         a FastLane instance instead of True to control k/retries/seed."""
+        fl = None
+        if fastlane:
+            from kubernetes_tpu_torch.engine.fastlane import FastLane
+            fl = fastlane if not isinstance(fastlane, bool) \
+                else FastLane(self)
         return ScheduleLoop(self, chunk, overlap, budget_s=budget_s,
                             min_quantum=min_quantum,
-                            max_quantum=max_quantum,
-                            fastlane=fastlane or None)
+                            max_quantum=max_quantum, fastlane=fl)
 
     def run_until_drained(self, max_rounds: int = 10_000,
                           max_batch: int = 0,

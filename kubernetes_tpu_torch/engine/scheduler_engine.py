@@ -20,7 +20,13 @@ PyTorch port of kubernetes_tpu/engine/scheduler_engine.py, on one device
   fence), finishes strict-tail pods via the conflict-round loop
   (waves.tail_rounds_loop) or the per-pod scan, assumes the survivors
   columnar, places host-exact rows with the exact oracle tail and hands
-  conflicts back for requeue.
+  conflicts back for requeue. Quorum-ready gangs ride a wave as ordinary
+  rows; the harvest's gang fence commits a gang only when at least its
+  quorum survives, and otherwise drops every member before anything is
+  assumed;
+- wave-path preemption's device pre-filter, ``preempt_scan``: one [C, N]
+  victim scan (ops/preempt.victim_scan) over the snapshot's priority-band
+  columns, uploaded by ``_prio_on_device``.
 
 The reference overlaps device and host through JAX's asynchronous
 dispatch. Here the wave loop (one host check per wave) runs on a worker
@@ -31,10 +37,6 @@ ends with the wave's one device->host copy, so a harvest never queues
 behind the next wave's work. Every host buffer a job reads is uploaded as
 a copy (convert.tensor_from_numpy), since the harvest folds commits into
 them in place while a later wave may still run.
-
-Gangs on the wave path raise NotImplementedError naming their ROADMAP
-item (a later slice of the port), so nothing is ever scheduled silently by
-a path that is not there.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from kubernetes_tpu_torch.observability.recorder import RECORDER
 from kubernetes_tpu_torch.ops import affinity as aff_ops
 from kubernetes_tpu_torch.ops import oracle
 from kubernetes_tpu_torch.ops import predicates as preds
+from kubernetes_tpu_torch.ops import preempt as preempt_ops
 from kubernetes_tpu_torch.ops import priorities as prio
 from kubernetes_tpu_torch.ops.oracle_ext import (
     AffinityMeta,
@@ -75,6 +78,8 @@ from kubernetes_tpu_torch.ops.predicates import bucket, int_matmul
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.classes import ClassBatch, pod_class_key
 from kubernetes_tpu_torch.state.snapshot import (
+    R_CPU,
+    R_MEM,
     R_OVERLAY,
     R_SCRATCH,
     ClusterSnapshot,
@@ -82,9 +87,6 @@ from kubernetes_tpu_torch.state.snapshot import (
 from kubernetes_tpu_torch.state.volumes import VolumeContext
 from kubernetes_tpu_torch.utils.trace import COUNTERS, timed_span
 
-GANG_SLICE = ("gangs on the wave path (engine/gang.py through "
-              "dispatch_waves), ROADMAP §1 'Gangs on both drain paths' of "
-              "the port")
 # hardPodAffinitySymmetricWeight, the reference's default
 HARD_POD_AFFINITY_WEIGHT = 1
 I32 = torch.int32
@@ -967,13 +969,13 @@ class WaveHandle:
     computes while the host does the previous wave's bookkeeping."""
 
     __slots__ = ("pods", "pc", "enc", "job", "nodes", "blind", "pop_ts",
-                 "dispatch_ts", "pad_floor", "strict_idx", "wave_id",
-                 "host_idx", "packed_h", "state_out", "committed_out",
-                 "counter_out")
+                 "dispatch_ts", "pad_floor", "strict_idx", "gangs",
+                 "wave_id", "host_idx", "packed_h", "state_out",
+                 "committed_out", "counter_out")
 
     def __init__(self, pods, pc, enc, job, nodes, blind, pop_ts,
-                 dispatch_ts, pad_floor=0, strict_idx=None, wave_id=-1,
-                 host_idx=None):
+                 dispatch_ts, pad_floor=0, strict_idx=None, gangs=None,
+                 wave_id=-1, host_idx=None):
         self.pad_floor = pad_floor
         self.pods = pods
         self.pc = pc                  # host int32 [n] class index per pod
@@ -987,6 +989,10 @@ class WaveHandle:
         # inactive on the wave path, placed by harvest's tail
         self.strict_idx = strict_idx if strict_idx is not None \
             else np.empty(0, dtype=np.int64)
+        # quorum-ready gangs riding this wave: [(name, member indices
+        # into `pods`, quorum)] — the harvest's gang fence commits or
+        # rolls back each one atomically
+        self.gangs = gangs or []
         # host_exact rows (padding class on the device): placed by the
         # harvest's exact oracle tail after the fence
         self.host_idx = host_idx if host_idx is not None \
@@ -1018,8 +1024,11 @@ class WaveHandle:
 class WaveHarvest:
     """Fenced result of one wave: pods to bind (node_name set, already
     assumed), fence conflicts to requeue WITHOUT backoff (a capacity race
-    with the blind wave, not unschedulability), unschedulable pods, and
-    the rows whose target node died mid-flight (requeue WITH backoff)."""
+    with the blind wave, not unschedulability), unschedulable pods, the
+    rows whose target node died mid-flight (requeue WITH backoff), and
+    for gang-bearing waves the gangs whose quorum committed (the caller
+    marks them degraded) plus the members of gangs the fence ROLLED BACK
+    atomically (requeue WITH backoff: the gang lost as a whole)."""
 
     __slots__ = ("bound", "conflicts", "unschedulable", "t_block",
                  "gang_committed", "gang_requeued", "liveness_requeued",
@@ -1124,6 +1133,15 @@ class SchedulingEngine:
         self.workloads_provider = workloads_provider or (lambda: [])
         self.hard_pod_affinity_weight = HARD_POD_AFFINITY_WEIGHT
         self._device_nodes: Dict[str, torch.Tensor] = {}
+        # snapshot version the resident node tensors were last synced at
+        # (the fast lane reads them only while they are current)
+        self._device_version = -1
+        # priority-band device bundle for the wave-path victim scan:
+        # uploaded on demand, keyed on snapshot.version — preemption
+        # rounds are rare next to waves, so this stays out of
+        # _nodes_on_device and its upload counters entirely
+        self._prio_dev: Optional[Dict[str, torch.Tensor]] = None
+        self._prio_dev_version = -1
         # wave count and strict-finish count of the last wave-mode batch
         self.last_wave_stats: Dict[str, int] = {}
         # targeted-refresh bookkeeping: when the OWNER (one Scheduler that
@@ -1524,7 +1542,100 @@ class SchedulingEngine:
         if uploaded:
             COUNTERS.inc("engine.device_upload_arrays", uploaded)
         snap.dirty.clear()
+        self._device_version = snap.version
         return self._device_nodes
+
+    # ------------------------------------------- wave-path preemption
+
+    def _prio_on_device(self) -> Dict[str, torch.Tensor]:
+        """Device bundle for the victim scan: spare capacity columns plus
+        the priority-band aggregates, quantized at upload (band sums
+        CEIL, need floors — the over-approximation direction
+        ops/preempt.py documents). Re-uploaded whenever the snapshot
+        version moved; ~[N, B] int32s, a fraction of one wave upload."""
+        snap = self.snapshot
+        if self._prio_dev is not None \
+                and self._prio_dev_version == snap.version:
+            return self._prio_dev
+        shift = snap.mem_shift
+        host = {
+            "spare_cpu": (snap.alloc[:, R_CPU].astype(np.int64)
+                          - snap.requested[:, R_CPU]).astype(np.int32),
+            "spare_mem": (snap.alloc[:, R_MEM].astype(np.int64)
+                          - snap.requested[:, R_MEM]).astype(np.int32),
+            "pod_count": snap.pod_count,
+            "allowed": snap.allowed_pods,
+            "band_cpu": snap.band_cpu.astype(np.int32),
+            "band_mem": (-((-snap.band_mem) >> shift)).astype(np.int32),
+            "band_count": snap.band_count,
+            "band_prio": np.clip(snap.band_prio_host, -(2 ** 31) + 1,
+                                 2 ** 31 - 1).astype(np.int32),
+        }
+        # COPY, never alias: pod_count/allowed/band_* are live snapshot
+        # arrays mutated in place between preemption rounds (refresh
+        # deltas, apply_assume_delta band folds)
+        self._prio_dev = {k: tensor_from_numpy(v, self.device)
+                          for k, v in host.items()}
+        self._prio_dev_version = snap.version
+        return self._prio_dev
+
+    def preempt_scan(self, pods: Sequence[Pod]):
+        """ONE [C, N] victim pre-filter for a round of preemptors:
+        returns (candidate [C, N] bool, bound [C, N] int32, class_of
+        [len(pods)]) as host arrays, with C the padded unique-(need,
+        priority) class count — or None when the band vocab overflowed /
+        priorities exceed int32, routing the caller to the exact host
+        pre-filter (the reference's own semantics, counted by the caller
+        as engine.preempt_scan_host_fallback)."""
+        snap = self.snapshot
+        if snap.prio_band_overflow or not hasattr(snap, "band_cpu") \
+                or not pods:
+            return None
+        shift = snap.mem_shift
+        uniq: Dict[tuple, int] = {}
+        rows: List[tuple] = []
+        class_of: List[int] = []
+        for p in pods:
+            if not (-(2 ** 31) < p.priority < 2 ** 31):
+                return None
+            req = p.resource_request()
+            key = (req.milli_cpu, req.memory, p.priority)
+            c = uniq.get(key)
+            if c is None:
+                c = len(rows)
+                uniq[key] = c
+                # need: cpu exact, mem FLOOR-quantized (under-estimates
+                # need — the superset direction)
+                rows.append((req.milli_cpu, req.memory >> shift,
+                             p.priority))
+            class_of.append(c)
+        # pad the class axis to the bucket ladder (both packages pad it
+        # identically); padding rows carry PAD_PRIO, below every band —
+        # no candidates
+        c_pad = bucket(len(rows), lo=4)
+        need_cpu = np.zeros(c_pad, dtype=np.int32)
+        need_mem = np.zeros(c_pad, dtype=np.int32)
+        prio_c = np.full(c_pad, preempt_ops.PAD_PRIO, dtype=np.int32)
+        for c, (cpu, mem_q, pr) in enumerate(rows):
+            need_cpu[c] = min(cpu, 2 ** 31 - 1)
+            need_mem[c] = min(mem_q, 2 ** 31 - 1)
+            prio_c[c] = pr
+        dev = self._prio_on_device()
+        COUNTERS.inc("engine.preempt_scan_dispatch")
+        cand_d, bound_d = preempt_ops.victim_scan(
+            tensor_from_numpy(need_cpu, self.device),
+            tensor_from_numpy(need_mem, self.device),
+            tensor_from_numpy(prio_c, self.device),
+            dev["spare_cpu"], dev["spare_mem"], dev["pod_count"],
+            dev["allowed"], dev["band_cpu"], dev["band_mem"],
+            dev["band_count"], dev["band_prio"])
+        # the scan's one result fetch, on the calling (harvesting)
+        # thread's stream: the host planner consumes the candidate rows
+        # NOW — a preemption round is synchronous by contract (it runs
+        # inside the harvest tail)
+        cand = cand_d.cpu().numpy()
+        bound = bound_d.cpu().numpy()
+        return cand, bound, class_of
 
     # ------------------------------------------------- pipelined drain
 
@@ -1972,10 +2083,15 @@ class SchedulingEngine:
         them via the seeded strict tail. Host-check and Policy chunks ride
         too: label-pure host classes via the precomputed host_fit column,
         the rest as inactive rows placed at the harvest's exact oracle
-        tail. Gangs raise NotImplementedError (a later slice of the
-        port)."""
-        if gangs:
-            raise NotImplementedError(GANG_SLICE)
+        tail. Returns None only for the one disclosed corner — a gang
+        whose quorum is unreachable from its wave-eligible members (it
+        would roll back forever).
+
+        `gangs` = [(name, member indices into `pods`, quorum)]: quorum-
+        ready gangs riding this wave as ordinary batch rows. Dispatch
+        treats them like any other pod; atomicity lives entirely in
+        harvest_waves' gang fence, so the pipeline never drains for a
+        gang chunk."""
         if not pods:
             return None
         _rec_t0 = time.monotonic() if RECORDER.enabled else 0.0
@@ -1984,6 +2100,16 @@ class SchedulingEngine:
             enc, pc = self._wave_encoding(pods, infos)
             hx = enc.host_exact[pc]
             host_idx = np.nonzero(hx)[0].astype(np.int64)
+            if gangs and host_idx.size:
+                # the one remaining chunk-shape flush corner (disclosed):
+                # a gang whose quorum is unreachable from its wave-
+                # eligible members would roll back on every re-dispatch —
+                # only IT flushes to the classic round
+                hset = set(host_idx.tolist())
+                for _gname, idxs, quorum in gangs:
+                    if sum(1 for i in idxs if i not in hset) < quorum:
+                        COUNTERS.inc("engine.wave_flush_gang_host")
+                        return None
             if enc.adata is not None:
                 # patched topology views re-upload once per dispatch,
                 # however many churn events were absorbed since the last
@@ -2057,20 +2183,23 @@ class SchedulingEngine:
             # admitted-pod count per dispatch: wave_dispatch_pods /
             # wave_dispatch is the realized wave size
             COUNTERS.inc("engine.wave_dispatch_pods", n)
+            if gangs:
+                COUNTERS.inc("engine.gang_wave_dispatch", len(gangs))
             wave_id = -1
             if RECORDER.enabled or TRACER.enabled:
                 wave_id = RECORDER.next_wave()
             if _rec_t0 and RECORDER.enabled:
                 RECORDER.record(flightrec.DISPATCH, wave=wave_id,
                                 t0=_rec_t0,
-                                dur=time.monotonic() - _rec_t0, a=n, b=0)
+                                dur=time.monotonic() - _rec_t0,
+                                a=n, b=len(gangs) if gangs else 0)
             if TRACER.enabled:
                 TRACER.batch_event(podtrace.WAVE_DISPATCHED,
                                    [p.key() for p in pods], a=wave_id)
             return WaveHandle(list(pods), pc, enc, job, nodes, blind,
                               pop_ts, time.monotonic(), self.wave_pad_floor,
-                              strict_idx=strict_idx, wave_id=wave_id,
-                              host_idx=host_idx)
+                              strict_idx=strict_idx, gangs=gangs,
+                              wave_id=wave_id, host_idx=host_idx)
 
     def harvest_waves(self, handle: WaveHandle) -> WaveHarvest:
         """Wait for one wave's job, fence its placements against
@@ -2161,24 +2290,62 @@ class SchedulingEngine:
             with timed_span("pipeline.fence"):
                 (acc_idx, acc_node, acc_cls, conflict_idx, liveness_idx,
                  conflict_codes) = self._fence(handle, sel, placed_idx)
+        # the GANG FENCE: all-or-nothing atomicity for gangs that rode
+        # this wave as ordinary batches. A gang COMMITS when >= quorum
+        # members survived placement AND the capacity/topology fence;
+        # below quorum, every member — placed, fenced, or unschedulable —
+        # is dropped from the accepted set BEFORE anything is assumed
+        # (atomic rollback with zero partial residue, by construction:
+        # nothing of a losing gang ever reaches the cache) and requeues
+        # WITH backoff, exactly the classic round's below-quorum semantics
+        gang_committed: List[str] = []
+        gang_requeued: List[Tuple[Pod, str]] = []
+        drop = None
+        if handle.gangs:
+            acc_mask = np.zeros(n, dtype=bool)
+            acc_mask[acc_idx] = True
+            drop = np.zeros(n, dtype=bool)
+            for gname, idxs, quorum in handle.gangs:
+                ia = np.asarray(idxs, dtype=np.int64)
+                ok_n = int(acc_mask[ia].sum())
+                if ok_n >= quorum:
+                    gang_committed.append(gname)
+                    continue
+                COUNTERS.inc("engine.gang_fence_rollbacks")
+                COUNTERS.inc("engine.fence_reason_gang", len(ia))
+                drop[ia] = True
+                reason = (f"gang {gname}: only {ok_n}/{len(ia)} members "
+                          f"placeable past the wave fence (quorum {quorum})")
+                gang_requeued.extend((pods[int(i)], reason) for i in ia)
+            if drop.any():
+                keep = ~drop[acc_idx]
+                acc_idx = acc_idx[keep]
+                acc_node = acc_node[keep]
+                acc_cls = acc_cls[keep]
+            else:
+                drop = None
         host_rows = set(handle.host_idx.tolist())
         unschedulable = [(pods[i], int(fc[i]))
                          for i in np.nonzero(sel < 0)[0].tolist()
-                         if i not in strag and i not in host_rows]
+                         if i not in strag and i not in host_rows
+                         and (drop is None or not drop[i])]
         bound: List[Pod] = []
         # conflicts + their typed reason codes, parallel: max-waves
         # stragglers are an affinity-routing verdict
         conflicts: List[Pod] = []
         conflict_reasons: List[int] = []
         for i in straggler_idx.tolist():
-            conflicts.append(pods[i])
-            conflict_reasons.append(podtrace.REASON_AFFINITY)
+            if drop is None or not drop[i]:
+                conflicts.append(pods[i])
+                conflict_reasons.append(podtrace.REASON_AFFINITY)
         for i, code in zip(conflict_idx, conflict_codes):
-            conflicts.append(pods[i])
-            conflict_reasons.append(code)
+            if drop is None or not drop[i]:
+                conflicts.append(pods[i])
+                conflict_reasons.append(code)
         # liveness rejects: the target node died / was cordoned
         # mid-flight — requeue WITH backoff (the caller's contract)
-        liveness = [pods[i] for i in liveness_idx]
+        liveness = [pods[i] for i in liveness_idx
+                    if drop is None or not drop[i]]
         if acc_idx.size:
             names = snap.node_names
             groups = []
@@ -2229,12 +2396,15 @@ class SchedulingEngine:
                               1)
                 enc.aff_seq += len(acc_l)
             bound = [pods[i] for i in sorted(acc_l)]
-        if host_rows:
-            # the exact oracle tail: host_exact rows place AFTER the wave
-            # rows' assume, against live NodeInfo truth — the classic
-            # round's slow_idx FIFO loop, so each host pod sees every
-            # commit this harvest just made (and each other's)
-            h_rows = sorted(host_rows)
+        # the exact oracle tail: host_exact rows place AFTER the wave
+        # rows' assume, against live NodeInfo truth — the classic round's
+        # slow_idx FIFO loop, so each host pod sees every commit this
+        # harvest just made (and each other's). Rolled-back gangs'
+        # members are excluded (their gang fence already requeued them
+        # WITH backoff — zero partial residue holds).
+        h_rows = [i for i in sorted(host_rows)
+                  if drop is None or not drop[i]]
+        if h_rows:
             COUNTERS.inc("engine.wave_host_tail", len(h_rows))
             with timed_span("pipeline.host_tail"):
                 host_nodes = self._oracle_tail(pods, h_rows)
@@ -2265,7 +2435,13 @@ class SchedulingEngine:
                 TRACER.event(p.key(), podtrace.FENCE_REQUEUED,
                              a=podtrace.REASON_LIVENESS,
                              b=handle.wave_id, t0=t_h)
+            for p, _why in gang_requeued:
+                TRACER.event(p.key(), podtrace.FENCE_REQUEUED,
+                             a=podtrace.REASON_GANG,
+                             b=handle.wave_id, t0=t_h)
         return WaveHarvest(bound, conflicts, unschedulable, t_block,
+                           gang_committed=gang_committed,
+                           gang_requeued=gang_requeued,
                            liveness_requeued=liveness,
                            conflict_reasons=conflict_reasons)
 

@@ -1,6 +1,6 @@
 """The always-on incremental scheduler loop (a copy of the reference
-package's engine/streaming.py, without the fast lane: ROADMAP §1 'The
-Sparrow fast lane' of the port).
+package's engine/streaming.py; the fast lane's device-idle test reads the
+port's WaveHandle.is_ready).
 
 BENCH_r09 exposed the shape of the old engine: a pre-loaded 30k-pod
 backlog drained at 28.8k pods/s, but under a live 5k/s offered stream it
@@ -55,10 +55,6 @@ from kubernetes_tpu_torch.observability.recorder import RECORDER
 from kubernetes_tpu_torch.ops.predicates import bucket
 from kubernetes_tpu_torch.utils.trace import COUNTERS, Trace
 
-FASTLANE_SLICE = ("the Sparrow fast lane (ops/fastlane.py, "
-                  "engine/fastlane.py), ROADMAP §1 'The Sparrow fast lane' "
-                  "of the port")
-
 
 class ScheduleLoop:
     """A live two-stage scheduling pipeline, optionally self-pacing.
@@ -81,13 +77,25 @@ class ScheduleLoop:
                  budget_s: Optional[float] = None,
                  min_quantum: int = 256, max_quantum: int = 16384,
                  fastlane=None):
-        if fastlane is not None:
-            raise NotImplementedError(FASTLANE_SLICE)
         self.sched = sched
         self.overlap = overlap
         self.budget_s = budget_s
         self.inflight = None
         self._pending: Dict[str, int] = {}  # stats from interrupt flushes
+        # Sparrow fast lane: when given an engine.fastlane
+        # .FastLane, latency-critical pods route to the queue's fast tier
+        # and are pumped between micro-waves (and while a harvest blocks
+        # on the device). None = the tier is off and every step below is
+        # shape-identical to the pre-fast-lane loop.
+        self.fastlane = fastlane
+        # per-STEP cap on critical-path fast pops: the bulk stream pays
+        # the fast tier's host time out of its own budget, so one burst
+        # of fast arrivals must not starve a quantum (harvest-overlap
+        # pumps are exempt — the host would otherwise just be blocked on
+        # the device)
+        self.fast_budget = 256
+        if fastlane is not None:
+            sched.queue.fast_classifier = fastlane.classify
         sched._pipeline = self
         if budget_s is None:
             # fixed mode: one compiled wave shape per drain — ragged
@@ -162,7 +170,8 @@ class ScheduleLoop:
                 "stream_backlog": self.sched.queue.ready_count() + inflight,
                 "stream_inflight": inflight,
                 "stream_degraded": int(self.degraded),
-                "stream_budget_ms": (self.budget_s or 0.0) * 1e3}
+                "stream_budget_ms": (self.budget_s or 0.0) * 1e3,
+                "stream_fast_pending": self.sched.queue.fast_count()}
 
     @property
     def idle(self) -> bool:
@@ -256,6 +265,40 @@ class ScheduleLoop:
         else:
             self._breach_streak = 0
 
+    # --------------------------------------------------------- fast lane
+
+    def _pump_fast(self, stats: Dict[str, int], limit: int = 0,
+                   busy=None) -> int:
+        """Drain the queue's fast tier through the FastLane executor —
+        the tier-aware pop interleaved between micro-waves.
+        ``limit`` caps pods this pump (0 = all); ``busy`` is an extra
+        WaveHandle still owning the device (the harvest-overlap poll
+        passes the wave it is waiting out). Routing is latency policy:
+        the sampled eval runs on the resident device arrays only while
+        NO wave is in flight (a launch queued behind a wave inherits the
+        wave's latency), else the bit-equal host twin. "In flight" is
+        the port's WaveHandle.is_ready: the wave's job (device work and
+        its fetch) has not finished."""
+        fl = self.fastlane
+        if fl is None:
+            return 0
+        q = self.sched.queue
+        if not q.fast_count():
+            return 0
+        pods = q.pop_fast(max_n=limit)
+        if not pods:
+            return 0
+        pop_ts = time.monotonic()
+        device_ok = True
+        for h in (self.inflight, busy):
+            if h is not None and not h.is_ready():
+                device_ok = False
+                break
+        for p in pods:
+            fl.schedule(p, pop_ts, device_ok=device_ok)
+        stats["fast_popped"] = stats.get("fast_popped", 0) + len(pods)
+        return len(pods)
+
     # -------------------------------------------------------------- step
 
     def step(self, wait: float = 0.0) -> Dict[str, int]:
@@ -273,6 +316,12 @@ class ScheduleLoop:
         s.sync()  # columnar; node/volume events flush the pipeline first
         if trace is not None:
             trace.step("informer sync done")
+        if self.fastlane is not None:
+            # fast tier first: a latency-critical pod that
+            # arrived in the sync above binds BEFORE this step's bulk
+            # quantum even pops — budgeted so a fast burst can't starve
+            # the bulk stream
+            self._pump_fast(stats, limit=self.fast_budget)
         now = time.monotonic()
         if now - self._last_gc >= self.gc_interval_s:
             # housekeeping regardless of load: a saturated
@@ -336,9 +385,32 @@ class ScheduleLoop:
                     handle.block()
         prev, self.inflight = self.inflight, handle
         if prev is not None:
+            fl = self.fastlane
+            if fl is not None and (s.queue.fast_count() or fl.hot()):
+                # harvest-overlap poll: the host is about to
+                # block on prev's wave job anyway, so until it lands,
+                # serve fast pods (host-twin evals — the device is busy)
+                # and SIP the watch stream for newly created ones
+                # (sync_pods_sip drains only the leading run of simple
+                # pod events and can never flush/reorder the pipeline).
+                # Exempt from fast_budget: these pops cost the bulk
+                # stream nothing — the alternative was idle blocking.
+                while not prev.is_ready():
+                    if self._pump_fast(stats, busy=prev) == 0 \
+                            and s.sync_pods_sip() == 0:
+                        time.sleep(0.0002)
             for k, v in s._complete_wave(prev).items():
                 stats[k] = stats.get(k, 0) + v
             self._observe_wave(prev)
+            if self.fastlane is not None and \
+                    (s.queue.fast_count() or self.fastlane.hot()):
+                # post-harvest pump: the harvest above is the
+                # one host section the overlap poll can't thread through
+                # — a fast pod that arrived inside it binds NOW, not
+                # after the next step's sync + bulk quantum (budgeted:
+                # the bulk stream already got this step's wave)
+                s.sync_pods_sip()
+                self._pump_fast(stats, limit=self.fast_budget)
             if trace is not None:
                 trace.step("previous wave harvested + bound")
         if self._pending:

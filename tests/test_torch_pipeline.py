@@ -4,8 +4,8 @@ seeded pods go through both, and the pod->node placements, the drain
 totals and the wave/tail/fence counters must be equal — with the strict
 tail run as conflict rounds and as the per-pod scan, and with overlap on
 and off (overlap=False must give the same placements as overlap=True).
-Also: the blind-window fence cases and the refusals of what later slices
-of the port bring."""
+Also: the blind-window fence cases and the refusal of a mesh, a later
+slice of the port."""
 
 import sys
 
@@ -23,7 +23,6 @@ import kubernetes_tpu_torch.engine.scheduler as tsched
 import kubernetes_tpu_torch.models.hollow as th
 import kubernetes_tpu_torch.server.apiserver_lite as tapi
 import kubernetes_tpu_torch.utils.trace as ttrace
-from kubernetes_tpu_torch.utils import features as tfeatures
 
 Gi = 1 << 30
 REF = (jt, jw, jh, japi, jsched, jtrace)
@@ -263,47 +262,6 @@ def _sched(pods, **kw):
     s = sched_mod.Scheduler(api, record_events=False, device="cpu", **kw)
     s.start()
     return s
-
-
-def test_gangs_raise_naming_their_slice():
-    s = _sched(th.gang_pods(16))
-    with pytest.raises(NotImplementedError,
-                       match=r"gangs.*ROADMAP §1 'Gangs on both drain paths'"):
-        s.run_until_drained()
-    s = _sched(th.gang_pods(16))
-    with pytest.raises(NotImplementedError,
-                       match=r"gangs.*ROADMAP §1 'Gangs on both drain paths'"):
-        s.run_until_drained(pipeline=False)
-
-
-def test_priority_preemption_raises_naming_its_slice():
-    """With PodPriority on, an unschedulable pod of priority > 0 makes the
-    reference plan a preemption, on the classic round and on the wave
-    path alike; the port refuses both."""
-    def big():
-        pods = [tt.make_pod(f"big-{i}", cpu=3000, memory=256 << 20)
-                for i in range(10)]   # 8 hollow nodes of 4 CPU: 2 left
-        for p in pods:
-            p.priority = 100
-        return pods
-
-    tfeatures.DEFAULT_FEATURE_GATE.set("PodPriority", True)
-    try:
-        for pipeline in (None, True):
-            s = _sched(big())
-            with pytest.raises(NotImplementedError,
-                               match=r"preemption.*ROADMAP §1 "
-                                     r"'PodPriority preemption'"):
-                s.run_until_drained(pipeline=pipeline)
-    finally:
-        tfeatures.DEFAULT_FEATURE_GATE.reset()
-
-
-def test_fastlane_raises_naming_its_slice():
-    s = _sched([])
-    with pytest.raises(NotImplementedError,
-                       match=r"fast lane.*ROADMAP §1 'The Sparrow fast lane'"):
-        s.stream(fastlane=True)
 
 
 def test_mesh_raises_naming_its_slice():
