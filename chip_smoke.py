@@ -109,11 +109,38 @@ phase fails. Phases:
      sample_eval) are timed at their main-path shapes beside their
      bounds. Each kernel's operands at every launch shape of 9a-9d are
      held against its plain version;
- 10. print the per-kernel summary line, then the result line.
+ 10. the process fleet and the federation, each through its own entry
+     point. 10a: bench.py measure_multiproc's sweep, run_process_fleet
+     over one shared cell of 5,000 hollow nodes (W = 1 and 2 on disjoint
+     pools, W = 2 at overlap 0.5, 100 pods a worker (depth cut from
+     500), relist every 16), every worker a spawned process whose
+     evaluator runs on the card; no duplicate bind, no worker failure,
+     every pod bound, the conflict reasons partitioning the fence's
+     count. 10b: bench.py
+     measure_federation's stream over four spawned cell processes (each
+     a CellAgent on the card at 5,000 nodes behind AsyncBinaryServer) and
+     one FederationRouter on the card over WireCells: 1,600 pods (one in
+     8 pinned to a zone), 4 gangs of 6, batches of 64, one brownout of
+     1.5 s, then one burst admission of 2,048 pods (route_scores on the
+     card); audited from every cell's store (no duplicate bind, no pod
+     bound in two cells, every gang in one cell, nothing pending, every
+     offered pod bound). Then one in-process CellAgent at 5,000 nodes
+     behind a LocalCell. Each child spies its kernel launches, holds the
+     kernels against their plain versions on its own operands and sends
+     its launch counts back; the capacity kernel must launch in every
+     cell and worker, and is held against its plain version at every
+     child's launch shape here too. 10c: route_scores on the card ==
+     the CPU == the host twin at C in (1, 33, 256, 2,048, 8,192) x M in
+     (4, 16) with wrapping int32 differences, ties, zero capacities,
+     not-ready cells and negative headroom; a frozen-column route() of
+     a 2,048-pod mixed batch agrees on the card, the CPU and the host
+     twin; route_scores timed at C = 2,048, M = 4 beside its bound;
+ 11. print the per-kernel summary line, then the result line.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7, 8a-8c and 9a-9d) and read just after it; launches made by the
-comparisons do not count.
+7, 8a-8c, 9a-9d and 10a-10b; in 10a and 10b each child process counts
+its own) and read just after it; launches made by the comparisons do not
+count.
 """
 
 from __future__ import annotations
@@ -2836,6 +2863,678 @@ def the_slice(mods, card):
     return total, err, {"victim_scan": vs, "sample_eval": se}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# 10a: bench.py measure_multiproc's sweep (its default: 64 nodes, 96 pods
+# a worker) over one shared cell of 5,000 hollow nodes: (workers,
+# overlap) runs, relist every 16 as bench does; depth cut from
+# 500 pods a worker to 100 so that phase 10 stays near 90 s and the run
+# near 8 minutes (at 500 the three runs took 89 s alone; at 200, 77.5 s
+# in a whole run of 492.0 s)
+FLEET = {"n_nodes": 5000, "pods_per_worker": 100, "relist_every": 16,
+         "runs": ((1, 0.0), (2, 0.0), (2, 0.5))}
+# 10b: bench.py measure_federation's stream at 5,000 nodes a cell (the
+# v1.7 cluster limit; bench's default 50,000), then one burst admission
+FED = {"cells": 4, "nodes_per_cell": 5000, "zones": 8, "pods": 1600,
+       "gangs": 4, "gang_size": 6, "batch": 64, "brownout_down_s": 1.5,
+       "burst": 2048, "warm": 8}
+# 10b's in-process cell, where the operand spy sees the launches
+LOCAL_CELL = {"n_nodes": 5000, "pods": 1024, "gangs": 2, "gang_size": 6}
+# 10c: route_scores card == CPU == host twin at these [C, M]
+ROUTE_C = (1, 33, 256, 2048, 8192)
+ROUTE_M = (4, 16)
+ROUTE_REGIMES = ("random", "wrap", "ties", "zero_cap", "not_ready",
+                 "negative")
+ROUTE_TIMED = (2048, 4)
+
+
+class ReportingQueue:
+    """A spawned child's view of its result queue: the message that ends
+    the child's run (a worker's result, a cell's final report) also
+    carries the child's kernel launch counts, the launch shapes its
+    OperandSpy saw, and the spy's kernel == plain check on those
+    operands (its launches are read before the check makes more)."""
+
+    def __init__(self, q, kernels, spy, tag):
+        self.q, self.kernels, self.spy, self.tag = q, kernels, spy, tag
+        # a cell child's agent, its pump thread's exception and its
+        # loop's closing stats (cell_probe fills them)
+        self.agent = self.pump_error = self.loop_stats = None
+
+    def put(self, msg):
+        if msg.get("final") or "worker" in msg:
+            msg = dict(msg)
+            if self.agent is not None:
+                stuck = [p for p in self.agent.api.list("Pod")[0]
+                         if not p.node_name]
+                msg["pending_pods"] = [
+                    (p.key(), sorted((p.annotations or {}).items()))
+                    for p in stuck[:20]]
+                msg["pump_alive"] = self.agent._thread.is_alive()
+                msg["pump_error"] = self.pump_error
+                msg["loop_stats"] = self.loop_stats
+            msg["launches"] = dict(self.kernels.LAUNCHES)
+            cap, inc = self.spy.shapes()
+            msg["shapes"] = {"capacity": cap, "incidence": inc}
+            try:
+                msg["max_err"] = self.spy.check(self.tag)
+            except SystemExit as e:
+                msg["ok"] = False
+                msg["error"] = str(e)
+        self.q.put(msg)
+
+
+def cell_probe(cell_mod, q):
+    """In a cell child: keep the CellAgent, its pump thread's exception
+    (the thread would die silently) and its loop's closing stats on the
+    ReportingQueue, for the final report."""
+    import traceback
+    agent_cls = cell_mod.CellAgent
+    real_init, real_pump, real_stop = (agent_cls.__init__, agent_cls._pump,
+                                       agent_cls.stop)
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        q.agent = self
+
+    def pump(self):
+        try:
+            real_pump(self)
+        except BaseException:
+            q.pump_error = traceback.format_exc()
+            raise
+
+    def stop(self):
+        q.loop_stats = real_stop(self)
+        return q.loop_stats
+
+    agent_cls.__init__, agent_cls._pump, agent_cls.stop = init, pump, stop
+
+
+def p10_child(kind, cfg, out_q, ctrl_q=None):
+    """Spawn target of phase 10's children (module level, so a spawned
+    process can import it): a fleet worker (``_worker_main``) or a cell
+    process (``run_cell_process``) of the port, with the kernel wrappers
+    spied and the launch counts sent back on the result queue."""
+    from kubernetes_tpu_torch.ops import kernels
+    spy = OperandSpy(kernels)
+    name = cfg.get("cell", cfg.get("worker_id"))
+    q = ReportingQueue(out_q, kernels, spy, f"10 {kind} {name}")
+    with spy:
+        if kind == "cell":
+            from kubernetes_tpu_torch.federation import cell as cell_mod
+            cell_probe(cell_mod, q)
+            cell_mod.run_cell_process(cfg, q, ctrl_q)
+        else:
+            from kubernetes_tpu_torch.parallel.multiproc import _worker_main
+            _worker_main(cfg, q)
+
+
+def _add_child(total, err, shapes, msg, tag):
+    """Fold one child's report into the phase's sums; fail if it did
+    not run, did not launch the capacity kernel or disagreed."""
+    if not msg.get("ok"):
+        fail(f"{tag}: {msg.get('error')}")
+    if "launches" not in msg:
+        fail(f"{tag}: no launch report")
+    if msg["launches"]["capacity_fit"] == 0:
+        fail(f"{tag}: no capacity launch")
+    for k, v in msg["launches"].items():
+        total[k] += v
+    for k, v in msg["max_err"].items():
+        err[k] = max(err[k], v)
+    shapes.update(tuple(s) for s in msg["shapes"]["capacity"])
+
+
+def process_fleet(mods, card, total, err, shapes):
+    """10a: run_process_fleet on the card as bench.py measure_multiproc
+    runs it, each worker a spawned p10_child; logs bench's slim report
+    of each run."""
+    import functools
+    from kubernetes_tpu_torch.parallel import multiproc
+    kernels = mods[0]
+    real = multiproc._worker_main
+    multiproc._worker_main = functools.partial(p10_child, "worker")
+    try:
+        for w, ov in FLEET["runs"]:
+            prefix = f"p10w{w}o{int(ov * 100)}"
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = multiproc.run_process_fleet(
+                w, pods_per_worker=FLEET["pods_per_worker"], overlap=ov,
+                n_nodes=FLEET["n_nodes"],
+                relist_every=FLEET["relist_every"], pod_prefix=prefix,
+                timeout_s=300.0, device=None)
+            wall = time.perf_counter() - t0
+            parent = dict(kernels.LAUNCHES)
+            agg = r["agg"]
+            tag = f"10a W={w} overlap {ov}"
+            if agg["missing_workers"] or agg["worker_failures"]:
+                fail(f"{tag}: {agg['missing_workers']} missing workers, "
+                     f"failures {agg['worker_failures']}")
+            if agg["duplicate_binds"]:
+                fail(f"{tag}: {agg['duplicate_binds']} duplicate binds")
+            if sum(agg["server_conflict_reasons"].values()) \
+                    != agg["server_bind_conflicts"]:
+                fail(f"{tag}: conflict reasons do not partition")
+            pods = [p for p in r["api"].list("Pod")[0]
+                    if p.name.startswith(prefix)]
+            unbound = [p.key() for p in pods if not p.node_name]
+            if unbound or agg["gave_up"]:
+                fail(f"{tag}: {len(unbound)} pods unbound, "
+                     f"{agg['gave_up']} given up")
+            child = {k: 0 for k in kernels.LAUNCHES}
+            for wr in r["workers"]:
+                _add_child(child, err, shapes, wr, f"{tag} worker "
+                           f"{wr.get('worker')}")
+            for k in total:
+                total[k] += child[k] + parent[k]
+            slim = {k: agg[k] for k in (
+                "workers", "pods_per_worker", "overlap", "binds",
+                "conflicts", "double_claim", "stale_snapshot", "relists",
+                "gave_up", "server_bind_conflicts",
+                "server_conflict_reasons", "duplicate_binds",
+                "missing_workers")}
+            slim.update(pods_s=agg["scheduled_pods_s"], wall_s=agg["wall_s"],
+                        conflict_rate=agg["conflict_rate"],
+                        worker_failures=len(agg["worker_failures"]),
+                        call_wall_s=wall, pods=len(pods),
+                        launches_workers=child, launches_parent=parent)
+            log(f"{tag}, {FLEET['n_nodes']} nodes, "
+                f"{FLEET['pods_per_worker']} pods a worker: "
+                f"{json.dumps(slim)} [{card}]")
+            del r, pods
+    finally:
+        multiproc._worker_main = real
+
+
+def _fed_pods(types, gang, names):
+    """bench.py measure_federation's offered stream: plain pods, one in
+    8 pinned to a zone of one cell, and whole-cell gangs."""
+    pods = []
+    for i in range(FED["pods"]):
+        sel = None
+        if i % 8 == 5:
+            cell = names[(i // 8) % len(names)]
+            sel = {"zone": f"{cell}-z{i % FED['zones']}"}
+        pods.append(types.make_pod(f"fedp-{i}", cpu=100,
+                                   memory=64 * 1024 ** 2, node_selector=sel))
+    for g in range(FED["gangs"]):
+        for m in range(FED["gang_size"]):
+            p = types.make_pod(f"fedgang{g}-{m}", cpu=50,
+                               memory=32 * 1024 ** 2)
+            p.annotations[gang.GANG_NAME_ANNOTATION] = f"fedgang{g}"
+            p.annotations[gang.GANG_MIN_AVAILABLE_ANNOTATION] = str(
+                FED["gang_size"])
+            pods.append(p)
+    return pods
+
+
+def _drain_router(router, driver, t_start, timeout_s):
+    """Spill pumps until every column is empty, the backlog too, and the
+    brownout schedule has played out. Returns the wall, or None when
+    that did not happen within timeout_s."""
+    td = time.monotonic()
+    while time.monotonic() - td < timeout_s:
+        if driver is not None:
+            driver.apply_until(time.monotonic() - t_start)
+        router.spill_pump()
+        pending = sum(a.pending for a in router.aggs.values())
+        if pending == 0 and not router.backlog \
+                and (driver is None or driver.done()):
+            return time.monotonic() - td
+        time.sleep(0.1)
+    log(f"10b: the federation did not drain in {timeout_s} s (pending "
+        f"{ {n: a.pending for n, a in router.aggs.items()} }, backlog "
+        f"{len(router.backlog)})")
+    return None
+
+
+def _p99(spans):
+    if not spans:
+        return 0.0
+    spans = sorted(spans)
+    return spans[min(len(spans) - 1, int(round(0.99 * (len(spans) - 1))))]
+
+
+def federation(mods, card, total, err, shapes):
+    """10b: bench.py measure_federation's path on the card: FED["cells"]
+    cell processes (each a p10_child running run_cell_process: a
+    CellAgent with its Scheduler on the card behind AsyncBinaryServer),
+    one FederationRouter(device=None) over WireCells, the offered stream
+    with a brownout, then one burst admission. Audited from each cell's
+    store; returns route_scores' launches (the router's device
+    batches)."""
+    import multiprocessing
+    (types, gang, router_mod, churn, kernels) = mods
+    names = [f"cell{i}" for i in range(FED["cells"])]
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    router = None
+    try:
+        t0 = time.monotonic()
+        for i, name in enumerate(names):
+            out_q, ctrl_q = ctx.Queue(), ctx.Queue()
+            cfg = {"cell": name, "n_nodes": FED["nodes_per_cell"],
+                   "seed": i, "zones": FED["zones"],
+                   "spill_after_attempts": 2, "device": None}
+            p = ctx.Process(target=p10_child,
+                            args=("cell", cfg, out_q, ctrl_q),
+                            name=f"fed-{name}", daemon=True)
+            p.start()
+            procs.append({"name": name, "proc": p, "out": out_q,
+                          "ctrl": ctrl_q})
+        for rec in procs:
+            msg = rec["out"].get(timeout=max(300 - (time.monotonic() - t0),
+                                             1.0))
+            if not msg.get("ok"):
+                fail(f"10b cell {rec['name']} failed to boot: "
+                     f"{msg.get('error')}")
+            rec["port"] = msg["port"]
+        boot_s = time.monotonic() - t0
+        kernels.reset_launch_counts()
+        router = router_mod.FederationRouter(
+            [router_mod.WireCell(r["name"], "127.0.0.1", r["port"])
+             for r in procs], device=None)
+        th = time.monotonic()
+        router.hydrate()
+        hydrate_s = time.monotonic() - th
+        agg_nodes = sum(a.nodes_total for a in router.aggs.values())
+        warm = [types.make_pod(f"fedwarm-{i}", cpu=100,
+                               memory=64 * 1024 ** 2)
+                for i in range(FED["warm"])]
+        router.admit(warm)
+        router.admit_spans.clear()
+        pods = _fed_pods(types, gang, names)
+        rate = 250.0 * (os.cpu_count() or 1)
+        batch = FED["batch"]
+        schedule = churn.make_brownout_schedule(
+            names, duration_s=max(len(pods) / rate,
+                                  FED["brownout_down_s"] * 2 + 1.0),
+            down_s=FED["brownout_down_s"], count=1, seed=0)
+        driver = churn.BrownoutDriver(router, schedule)
+        t_start = time.monotonic()
+        sent = 0
+        gang_of = [(p.annotations or {}).get(gang.GANG_NAME_ANNOTATION)
+                   for p in pods]
+        while sent < len(pods):
+            now = time.monotonic() - t_start
+            driver.apply_until(now)
+            due = min(len(pods), int(now * rate) + batch)
+            # unlike bench.py's loop, never cut a gang between two
+            # admits: the router keeps a gang whole only within one
+            # admit, and a split gang never reaches quorum in either cell
+            while 0 < due < len(pods) and gang_of[due] is not None \
+                    and gang_of[due] == gang_of[due - 1]:
+                due += 1
+            if due > sent:
+                router.admit(pods[sent:due])
+                sent = due
+                if (sent // batch) % 4 == 0:
+                    router.refresh()
+            else:
+                time.sleep(min(batch / rate, 0.05))
+        offer_s = time.monotonic() - t_start
+        drain_s = _drain_router(router, driver, t_start, 120.0)
+        stream_spans = [d for _t, d, _n in router.admit_spans]
+        steady = [d for _t, d, n in router.admit_spans if n <= batch]
+        stream_counters = router.counters_snapshot()
+        # the burst: one admit of FED["burst"] plain pods, past
+        # DEVICE_MIN_BATCH, so route_scores runs on the card
+        burst = [types.make_pod(f"fedburst-{i}", cpu=100,
+                                memory=64 * 1024 ** 2)
+                 for i in range(FED["burst"])]
+        tb = time.monotonic()
+        burst_admit_s = burst_drain_s = None
+        if drain_s is not None:
+            router.admit(burst)
+            burst_admit_s = time.monotonic() - tb
+            burst_drain_s = _drain_router(router, None, t_start, 120.0)
+        counters = router.counters_snapshot()
+        router_launches = dict(kernels.LAUNCHES)
+        router.close()
+        router = None
+        for rec in procs:
+            rec["ctrl"].put("stop")
+        finals = {}
+        for rec in procs:
+            msg = rec["out"].get(timeout=120.0)
+            while not msg.get("final"):
+                msg = rec["out"].get(timeout=120.0)
+            finals[rec["name"]] = msg
+            rec["proc"].join(timeout=60.0)
+    finally:
+        if router is not None:
+            router.close()
+        for rec in procs:
+            if rec["proc"].is_alive():
+                rec["ctrl"].put("stop")
+        for rec in procs:
+            rec["proc"].join(timeout=30.0)
+            if rec["proc"].is_alive():
+                rec["proc"].terminate()
+                rec["proc"].join(timeout=10.0)
+    # ---- the audits: store truth from every cell
+    if drain_s is None or burst_drain_s is None:
+        for name, f in finals.items():
+            log(f"10b {name} at the stop: " + json.dumps(
+                {k: f.get(k) for k in ("ok", "error", "pending",
+                                       "pending_pods", "pump_alive",
+                                       "pump_error", "loop_stats",
+                                       "counters")}, default=str))
+        fail("10b: the federation did not drain")
+    owner, cross, dup = {}, 0, {}
+    child = {k: 0 for k in kernels.LAUNCHES}
+    for name, f in finals.items():
+        _add_child(child, err, shapes, f, f"10b {name}")
+        dup[name] = f["duplicate_binds"]
+        for key in f["bound"]:
+            if key in owner and owner[key] != name:
+                cross += 1
+            owner[key] = name
+    if cross or any(dup.values()):
+        fail(f"10b: cross-cell double binds {cross}, per-cell duplicate "
+             f"binds {dup}")
+    offered = {p.key() for p in warm + pods + burst}
+    pending = sum(f["pending"] for f in finals.values())
+    if pending or set(owner) != offered:
+        fail(f"10b: {pending} pods pending, {len(offered - set(owner))} "
+             f"offered pods not bound, {len(set(owner) - offered)} bound "
+             f"pods not offered")
+    for g in range(FED["gangs"]):
+        homes = {owner[f"default/fedgang{g}-{m}"]
+                 for m in range(FED["gang_size"])}
+        if len(homes) != 1:
+            fail(f"10b: gang fedgang{g} spans cells {homes}")
+    if counters["device_batches"] < 1:
+        fail("10b: route_scores never ran on the card")
+    for k in total:
+        total[k] += child[k] + router_launches[k]
+    rep = {
+        "cells": FED["cells"], "nodes_per_cell": FED["nodes_per_cell"],
+        "agg_nodes": agg_nodes, "boot_s": boot_s, "hydrate_s": hydrate_s,
+        "offered_rate_pods_s": rate, "offered_pods": len(pods),
+        "offer_s": offer_s, "drain_s": drain_s,
+        "stream_pods_s": len(pods) / (offer_s + drain_s),
+        "admission_p50_ms": 1e3 * statistics.median(stream_spans),
+        "admission_p99_ms": 1e3 * _p99(stream_spans),
+        "steady_batch_p99_ms": 1e3 * _p99(steady),
+        "admission_batches": len(stream_spans),
+        "brownout": {"cell": schedule[0].cell, "t": schedule[0].t,
+                     "down_s": schedule[0].down_s},
+        "burst_pods": len(burst), "burst_admit_ms": 1e3 * burst_admit_s,
+        "burst_drain_s": burst_drain_s,
+        "burst_pods_s": len(burst) / (burst_admit_s + burst_drain_s),
+        "stream_device_batches": stream_counters["device_batches"],
+        "stream_host_batches": stream_counters["host_batches"],
+        "device_batches": counters["device_batches"],
+        "host_batches": counters["host_batches"],
+        "spill_moved": counters["spill_moved"],
+        "evacuated_moved": counters["evacuated_moved"],
+        "bound": len(owner), "duplicate_binds_per_cell": dup,
+        "cross_cell_double_binds": cross,
+        "per_cell_bound": {n: len(f["bound"]) for n, f in finals.items()},
+        "launches_cells": child, "launches_router": router_launches,
+    }
+    log(f"10b federation, {FED['cells']} cells x {FED['nodes_per_cell']} "
+        f"nodes: {json.dumps(rep)} [{card}]")
+    return counters["device_batches"]
+
+
+def local_cell(mods, card, total, err):
+    """10b, in process: one CellAgent on the card at 5,000 nodes behind a
+    FederationRouter over a LocalCell, where the operand spy sees every
+    launch; a plain stream with two gangs drains, audited from the
+    store, and each launch shape is held against the plain version."""
+    (hollow, types, gang, cell_mod, router_mod, multiproc, kernels) = mods
+    nodes = hollow.hollow_nodes(LOCAL_CELL["n_nodes"], seed=9)
+    for i, n in enumerate(nodes):
+        n.labels["zone"] = f"local-z{i % FED['zones']}"
+    pods = [types.make_pod(f"loc-{i}", cpu=100 * (1 + i % 3),
+                           memory=64 * 1024 ** 2)
+            for i in range(LOCAL_CELL["pods"])]
+    for g in range(LOCAL_CELL["gangs"]):
+        for m in range(LOCAL_CELL["gang_size"]):
+            p = types.make_pod(f"locgang{g}-{m}", cpu=50,
+                               memory=32 * 1024 ** 2)
+            p.annotations[gang.GANG_NAME_ANNOTATION] = f"locgang{g}"
+            p.annotations[gang.GANG_MIN_AVAILABLE_ANNOTATION] = str(
+                LOCAL_CELL["gang_size"])
+            pods.append(p)
+    spy = OperandSpy(kernels)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with spy:
+        agent = cell_mod.CellAgent("local", nodes, device=None)
+        try:
+            agent.start()
+            router = router_mod.FederationRouter(
+                [router_mod.LocalCell("local", agent.service)],
+                device=None)
+            router.hydrate()
+            router.admit(pods)
+            if _drain_router(router, None, 0.0, 120.0) is None:
+                fail("10b in-process cell: the cell did not drain")
+        finally:
+            agent.stop()
+            agent.sched.engine.close()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches["capacity_fit"] == 0:
+        fail("10b in-process cell: no capacity launch")
+    placed = agent.api.list("Pod")[0]
+    if any(not p.node_name for p in placed) or len(placed) != len(pods):
+        fail("10b in-process cell: not every pod bound")
+    if multiproc.audit_duplicate_binds(agent.api):
+        fail("10b in-process cell: duplicate binds")
+    for k, v in spy.check("10b in-process cell").items():
+        err[k] = max(err[k], v)
+    for k, v in launches.items():
+        total[k] += v
+    cap, _inc = spy.shapes()
+    log(f"10b in-process cell, {LOCAL_CELL['n_nodes']} nodes, "
+        f"{len(pods)} pods: all bound in {wall:.3f} s, launches "
+        f"{launches}, capacity shapes (C, N, R) {cap} [{card}]")
+    return cap
+
+
+def route_operands(rng, c, m, regime):
+    """route_scores' nine host operands in one regime (the tests'
+    regimes: random, int32 differences that wrap, ties, zero
+    capacities, one ready cell, negative headroom)."""
+    import numpy as np
+    i32min, i32max = -2 ** 31, I32_MAX
+    dem_cpu = rng.integers(0, 2000, c).astype(np.int32)
+    dem_mem = rng.integers(0, 2000, c).astype(np.int32)
+    cpu_free = rng.integers(-500, 40_000, m).astype(np.int32)
+    mem_free = rng.integers(-500, 40_000, m).astype(np.int32)
+    cpu_cap = rng.integers(1, 80_000, m).astype(np.int32)
+    mem_cap = rng.integers(1, 80_000, m).astype(np.int32)
+    pressure = rng.uniform(0, 3, m).astype(np.float32)
+    ready = rng.random(m) > 0.3
+    dom_ok = rng.random((c, m)) > 0.2
+    if regime == "wrap":
+        cpu_free[::2] = i32min + rng.integers(0, 1000, cpu_free[::2].size)
+        mem_free[1::2] = i32max - rng.integers(0, 1000, mem_free[1::2].size)
+        dem_cpu[::3] = rng.integers(1000, 2 ** 30, dem_cpu[::3].size)
+        dem_mem[1::3] = -rng.integers(1000, 2 ** 30, dem_mem[1::3].size)
+        cpu_cap[:] = rng.integers(i32max // 2, i32max, m)
+    elif regime == "ties":
+        for a in (cpu_free, mem_free, cpu_cap, mem_cap, pressure):
+            a[:] = a[0]
+        ready[:] = True
+        dom_ok[:] = True
+    elif regime == "zero_cap":
+        cpu_cap[::2] = 0
+        mem_cap[1::2] = 0
+        cpu_free[:] = rng.integers(0, 3, m)
+    elif regime == "not_ready":
+        ready[:] = False
+        ready[m // 2] = True
+    elif regime == "negative":
+        cpu_free[:] = -rng.integers(1, 1000, m)
+    return (dem_cpu, dem_mem, cpu_free, mem_free, cpu_cap, mem_cap,
+            pressure, ready, dom_ok)
+
+
+# four frozen columns: c0 nearly full, c1 drowning in pending pods, c2
+# short of cpu and c3 short of memory at about the same headroom, so the
+# batch's three pod sizes split between c2 and c3 by their demand
+FROZEN_CELLS = {
+    "c0": dict(nodes_total=10, nodes_ready=10, cpu_alloc_m=400_000,
+               mem_alloc_mib=409_600, cpu_used_m=350_000,
+               mem_used_mib=40_960, pending=0,
+               domains={"z0": 5, "z1": 5}),
+    "c1": dict(nodes_total=10, nodes_ready=10, cpu_alloc_m=400_000,
+               mem_alloc_mib=409_600, cpu_used_m=80_000,
+               mem_used_mib=40_960, pending=120, domains={"z1": 10}),
+    "c2": dict(nodes_total=10, nodes_ready=10, cpu_alloc_m=400_000,
+               mem_alloc_mib=409_600, cpu_used_m=200_000,
+               mem_used_mib=40_960, pending=0, domains={"z2": 10}),
+    "c3": dict(nodes_total=10, nodes_ready=10, cpu_alloc_m=400_000,
+               mem_alloc_mib=409_600, cpu_used_m=80_000,
+               mem_used_mib=204_859, pending=0,
+               domains={"z2": 4, "z3": 6}),
+}
+
+
+class _FrozenHandle:
+    def __init__(self, name):
+        self.name = name
+
+    def close(self):
+        pass
+
+
+def frozen_route(mods, device, use_device):
+    """One route() of a 2,048-pod mixed batch (three sizes, zone pins,
+    two gangs, one pod no cell fits, an exclude map) over FROZEN_CELLS."""
+    types, gang, agg_mod, router_mod = mods
+    router = router_mod.FederationRouter(
+        [_FrozenHandle(n) for n in FROZEN_CELLS], use_device=use_device,
+        device=device)
+    for name, shape in FROZEN_CELLS.items():
+        router.aggs[name] = agg_mod.CellAggregate(cell=name, ready=True,
+                                                  **shape)
+    pods = [types.make_pod(f"fr-{i}", cpu=100 + 50 * (i % 3),
+                           memory=64 << 20) for i in range(2020)]
+    for z in ("z1", "z2", "z3", "z9"):
+        pods.append(types.make_pod(f"fr-pin-{z}", cpu=100, memory=64 << 20,
+                                   node_selector={"zone": z}))
+    pods.append(types.make_pod("fr-huge", cpu=10 ** 7, memory=64 << 20))
+    for g, size in (("frg0", 8), ("frg1", 15)):
+        for m in range(size):
+            p = types.make_pod(f"{g}-{m}", cpu=50, memory=32 << 20)
+            p.annotations[gang.GANG_NAME_ANNOTATION] = g
+            pods.append(p)
+    exclude = {f"default/fr-{i}": "c1" for i in range(0, 2020, 7)}
+    assigned, leftover = router.route(pods, exclude=exclude)
+    return ({c: [p.key() for p in ps] for c, ps in assigned.items()},
+            [p.key() for p in leftover], router.counters_snapshot(),
+            len(pods))
+
+
+def route_card_vs_cpu(mods, card):
+    """10c: route_scores on the card == the port's CPU route == the host
+    twin at every [C, M] of ROUTE_C x ROUTE_M in every regime; a frozen
+    router's route() of a 2,048-pod mixed batch is the same on the card,
+    on the CPU and through the host twin; route_scores timed at
+    ROUTE_TIMED beside its bound and its host twin."""
+    import numpy as np
+    import torch
+    (types, gang, agg_mod, router_mod, fed) = mods
+    n = 0
+    for c in ROUTE_C:
+        for m in ROUTE_M:
+            for regime in ROUTE_REGIMES:
+                rng = np.random.default_rng([c, m, len(regime)])
+                args = route_operands(rng, c, m, regime)
+                got = fed.route_scores(*args, device=None)
+                cpu = fed.route_scores(*args, device="cpu")
+                host = fed.route_scores_host(*args)
+                if got.dtype != np.int32 or got.shape != (2, c) \
+                        or not np.array_equal(got, cpu) \
+                        or not np.array_equal(got, host):
+                    fail(f"10c route_scores C={c} M={m} {regime}: card "
+                         f"!= CPU or host twin")
+                n += 1
+    log(f"10c route_scores: card == CPU == host twin in {n} cases (C in "
+        f"{list(ROUTE_C)}, M in {list(ROUTE_M)}, {len(ROUTE_REGIMES)} "
+        f"regimes)")
+    fmods = (types, gang, agg_mod, router_mod)
+    card_r = frozen_route(fmods, None, True)
+    cpu_r = frozen_route(fmods, "cpu", True)
+    host_r = frozen_route(fmods, "cpu", False)
+    if card_r[:2] != cpu_r[:2] or card_r[:2] != host_r[:2]:
+        fail("10c frozen route(): card != CPU or host twin")
+    if card_r[2]["device_batches"] != 1 or host_r[2]["host_batches"] != 1:
+        fail(f"10c frozen route(): routes not taken as asked "
+             f"({card_r[2]}, {host_r[2]})")
+    log(f"10c frozen route() of {card_r[3]} pods over 4 cells: card == "
+        f"CPU == host twin ({ {c: len(k) for c, k in card_r[0].items()} }"
+        f", {len(card_r[1])} left over)")
+    # ---- timing at the burst's shape
+    c, m = ROUTE_TIMED
+    args = route_operands(np.random.default_rng(77), c, m, "random")
+    dev = torch.device("cuda")
+    dargs = [torch.from_numpy(np.array(a)).to(dev) for a in args]
+    nbytes = sum(a.nbytes for a in args) + 2 * c * 4
+    ops = 16 * c * m
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    rs = {"shape": [c, m],
+          "ms": time_ms(lambda: fed.route_scores(*args, device=None)),
+          "device_ms": time_device_ms(
+              lambda: fed.route_scores_device(*dargs), reps=10),
+          "bound_ms": max(b_bytes, b_ops) * 1e3,
+          "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fed.route_scores_host(*args)
+    rs["host_twin_ms"] = 1e3 * (time.perf_counter() - t0) / 200
+    log("10c route_scores timing: " + json.dumps(rs))
+    return rs
+
+
+def federation_and_fleet(mods, card):
+    """Phase 10: the process fleet (10a), the federation (10b) and card
+    == CPU for the routing (10c). Returns (launches summed over 10a and
+    10b, max abs err per kernel, {"route_scores": timing})."""
+    t_phase = time.perf_counter()
+    (hollow, types, gang, churn, kernels, fed, agg_mod, router_mod,
+     cell_mod, multiproc) = mods
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    shapes = set()
+    t = time.perf_counter()
+    process_fleet((kernels,), card, total, err, shapes)
+    log(f"10a took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    device_batches = federation(
+        (types, gang, router_mod, churn, kernels), card, total, err, shapes)
+    local_shapes = local_cell((hollow, types, gang, cell_mod, router_mod,
+                               multiproc, kernels), card, total, err)
+    log(f"10b took {time.perf_counter() - t:.1f} s")
+    # the children's capacity launch shapes, held against the plain
+    # version in this process too (operands drawn at each shape)
+    import numpy as np
+    rng = np.random.default_rng(10)
+    dev = "cuda"
+    for c, n, r in sorted(shapes | set(local_shapes)):
+        ops = headroom_operands(rng, *capacity_operands(rng, c, n, r, dev))
+        err["capacity_fit"] = max(err["capacity_fit"],
+                                  check_capacity_outputs(
+                                      kernels, ops, f"10 ({c}, {n}, {r})"))
+    log(f"10: capacity kernel == plain at the children's launch shapes "
+        f"(C, N, R) {sorted(shapes)}")
+    t = time.perf_counter()
+    rs = route_card_vs_cpu((types, gang, agg_mod, router_mod, fed), card)
+    rs["launches"] = device_batches
+    log(f"10c took {time.perf_counter() - t:.1f} s")
+    log(f"phase 10 launches {total}; phase 10 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, err, {"route_scores": rs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2852,11 +3551,16 @@ def main() -> int:
         from kubernetes_tpu_torch.engine.scheduler import Scheduler
         from kubernetes_tpu_torch.engine.scheduler_engine import (
             SchedulingEngine, evaluate_pod)
+        from kubernetes_tpu_torch.federation import aggregate as agg_mod
+        from kubernetes_tpu_torch.federation import cell as cell_mod
+        from kubernetes_tpu_torch.federation import router as router_mod
         from kubernetes_tpu_torch.models import hollow
         from kubernetes_tpu_torch.ops import affinity, kernels
         from kubernetes_tpu_torch.ops import fastlane as fast_ops
+        from kubernetes_tpu_torch.ops import federation as fed_ops
         from kubernetes_tpu_torch.ops import preempt as preempt_ops
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
+        from kubernetes_tpu_torch.parallel import multiproc
         from kubernetes_tpu_torch.server import (apiserver_lite, daemon,
                                                  extender)
         from kubernetes_tpu_torch.state import cache as cache_mod
@@ -2941,7 +3645,15 @@ def main() -> int:
     for k, v in err_p9.items():
         max_err[k] = max(max_err[k], v)
 
-    # 10. summary
+    # 10. the process fleet and the federation
+    launches_p10, err_p10, dev_fns_p10 = federation_and_fleet(
+        (hollow, types, gang, churn, kernels, fed_ops, agg_mod, router_mod,
+         cell_mod, multiproc), card)
+    for k, v in err_p10.items():
+        max_err[k] = max(max_err[k], v)
+    dev_fns.update(dev_fns_p10)
+
+    # 11. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -2953,7 +3665,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (launches_drain[name] + launches_eval[name]
                          + launches_pipe[name] + launches_ext[name]
-                         + launches_p8[name] + launches_p9[name]),
+                         + launches_p8[name] + launches_p9[name]
+                         + launches_p10[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2967,7 +3680,7 @@ def main() -> int:
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
         f"pipelined drains {launches_pipe}, extender {launches_ext}, "
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
-        f"lane {launches_p9}")
+        f"lane {launches_p9}, process fleet and federation {launches_p10}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of kubernetes_tpu_torch, and neither
 chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
-package imports with both blocked; and its entry points refuse to run on a
+package imports with both blocked; a spawned cell process or fleet worker
+of the port never imports either; and its entry points refuse to run on a
 box without a card unless the caller names the CPU."""
 
 import ast
@@ -12,6 +13,8 @@ import pytest
 
 import kubernetes_tpu_torch
 from kubernetes_tpu_torch.engine.scheduler import Scheduler
+from kubernetes_tpu_torch.federation.cell import CellAgent
+from kubernetes_tpu_torch.federation.router import FederationRouter, LocalCell
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     SchedulingEngine,
     evaluate_pod,
@@ -79,3 +82,74 @@ def test_entry_points_default_to_the_card():
         evaluate_pods_batch([], {}, ClusterSnapshot(), ())
     with pytest.raises(RuntimeError, match="CUDA"):
         SchedulerDaemon(ApiServerLite(), "me")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FederationRouter([LocalCell("c0", None)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CellAgent("c0", [])
+
+
+class _StopAtOnce:
+    """A control queue whose first message is "stop"."""
+
+    def get(self, timeout=None):
+        return "stop"
+
+
+def _spawned_child(kind, cfg, out_q):
+    """Spawn target: run one of the port's process entry points, then
+    report which forbidden modules the child ever imported."""
+    if kind == "cell":
+        from kubernetes_tpu_torch.federation.cell import run_cell_process
+        run_cell_process(cfg, out_q, _StopAtOnce())
+    else:
+        from kubernetes_tpu_torch.parallel.multiproc import _worker_main
+        _worker_main(cfg, out_q)
+    out_q.put({"modules": sorted(m for m in sys.modules
+                                 if m.split(".")[0] in FORBIDDEN)})
+
+
+@pytest.mark.parametrize("kind", ["cell", "worker"])
+def test_spawned_children_import_no_jax_or_reference(kind):
+    import multiprocessing
+
+    from kubernetes_tpu_torch.api.types import make_pod
+    from kubernetes_tpu_torch.models.hollow import hollow_nodes
+    from kubernetes_tpu_torch.server import framing
+    from kubernetes_tpu_torch.server.asyncwire import AsyncBinaryServer
+    from kubernetes_tpu_torch.server.embedded import VerdictService
+
+    srv = None
+    if kind == "cell":
+        cfg = {"cell": "iso", "n_nodes": 8, "device": "cpu"}
+    else:
+        backend = TPUExtenderBackend(device="cpu")
+        backend.sync_nodes(hollow_nodes(8))
+        srv = AsyncBinaryServer(VerdictService(backend))
+        srv.start()
+        pods = [make_pod(f"iso-{i}", cpu=100, memory=64 << 20)
+                for i in range(2)]
+        cfg = {"worker_id": 0, "host": "127.0.0.1", "port": srv.port,
+               "pods_blob": framing.encode_items_blob(pods, "pods"),
+               "device": "cpu"}
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    proc = ctx.Process(target=_spawned_child, args=(kind, cfg, out_q),
+                       daemon=True)
+    proc.start()
+    try:
+        msgs = []
+        while not msgs or "modules" not in msgs[-1]:
+            msgs.append(out_q.get(timeout=120))
+        proc.join(timeout=30)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=5)
+        if srv is not None:
+            srv.stop()
+    assert all(m.get("ok", True) for m in msgs), msgs
+    assert msgs[-1]["modules"] == []
+    if kind == "cell":
+        assert msgs[0]["port"] > 0 and msgs[1]["final"]
+    else:
+        assert msgs[0]["counts"]["binds"] == 2
