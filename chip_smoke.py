@@ -135,12 +135,30 @@ phase fails. Phases:
      not-ready cells and negative headroom; a frozen-column route() of
      a 2,048-pod mixed batch agrees on the card, the CPU and the host
      twin; route_scores timed at C = 2,048, M = 4 beside its bound;
- 11. print the per-kernel summary line, then the result line.
+ 11. the node-axis mesh and the upload sanitizer, D shards of one card
+     (parallel/mesh.make_mesh(D) repeats the one device). 11a:
+     Scheduler(mesh=make_mesh(4)).run_until_drained() at 5,000 x 30,000,
+     density and mixed_affinity: placements equal phase 6's unsharded
+     drains, phase 6's store audit, both kernels launched on every shard
+     at the per-shard width 1,250 and held against their plain versions
+     at every launch shape, the two-stage reduce and the per-shard row
+     delta counted (engine.reduce_candidate_rows, shard_delta_rows) and
+     host_fetch_bytes per wave printed. 11b: bench.py _scale_drain_impl's
+     engine-level drain (density, 5,000 x 30,000, chunks of 4,096) at
+     D = 1, 2 and 4: the same placement sha256 at every D, capacity
+     launched on every shard at width 5,000 / D and held against its
+     plain version at every launch shape, walls printed.
+     11c: mixed_affinity at 512 x 3,000 with D = 8, on the card and on the
+     CPU, equal to phase 6's unsharded CPU run. 11d: GRAFT_SANITIZE=1: the
+     512 x 3,000 mixed_affinity drain on the card and on a D = 4 mesh,
+     equal to the unsanitized run, with the seams' alias checks and seals
+     counted; an aliasing upload constructor on a CPU tensor raises;
+ 12. print the per-kernel summary line, then the result line.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7, 8a-8c, 9a-9d and 10a-10b; in 10a and 10b each child process counts
-its own) and read just after it; launches made by the comparisons do not
-count.
+7, 8a-8c, 9a-9d, 10a-10b, 11a and 11b; in 10a and 10b each child process
+counts its own) and read just after it; launches made by the comparisons
+do not count.
 """
 
 from __future__ import annotations
@@ -841,6 +859,9 @@ PIPE_COUNTERS = ("engine.wave_dispatch", "engine.wave_dispatch_pods",
                  "engine.tail_round_dispatch", "engine.wave_tail_dispatch",
                  "engine.affinity_fence_requeues",
                  "engine.fence_reason_capacity", "engine.host_fetch_bytes")
+# the mesh's own counters (phase 11)
+MESH_COUNTERS = ("engine.reduce_candidate_rows", "engine.shard_delta_rows",
+                 "engine.shard_upload_bytes", "engine.device_upload_arrays")
 
 
 class OperandSpy:
@@ -854,14 +875,24 @@ class OperandSpy:
         self.kernels = kernels
         self.cap = {}
         self.inc = {}
+        # (kernel, thread name) -> calls on the card: a mesh's SPMD
+        # shards run in threads named spmd-shard-<d>
+        self.by_thread = {}
         self._real = (kernels.capacity_fit, kernels.capacity_headroom,
                       kernels.incidence_matmul)
+
+    def _note(self, name, t):
+        if t.is_cuda:
+            import threading
+            key = (name, threading.current_thread().name)
+            self.by_thread[key] = self.by_thread.get(key, 0) + 1
 
     def __enter__(self):
         k = self.kernels
         fit, head, inc = self._real
 
         def capacity_fit(pod_req, alloc, requested, zero_req=None):
+            self._note("capacity_fit", pod_req)
             key = ("mask", tuple(pod_req.shape), tuple(alloc.shape),
                    zero_req is not None)
             if pod_req.is_cuda and key not in self.cap:
@@ -871,12 +902,14 @@ class OperandSpy:
             return fit(pod_req, alloc, requested, zero_req)
 
         def capacity_headroom(*ops):
+            self._note("capacity_fit", ops[0])
             key = ("wave", tuple(ops[0].shape), tuple(ops[2].shape), True)
             if ops[0].is_cuda and key not in self.cap:
                 self.cap[key] = tuple(t.clone() for t in ops)
             return head(*ops)
 
         def incidence_matmul(a, b_t):
+            self._note("incidence_matmul", a)
             key = (tuple(a.shape), tuple(b_t.shape))
             if a.is_cuda and key not in self.inc:
                 self.inc[key] = (a.clone(), b_t.clone())
@@ -891,6 +924,12 @@ class OperandSpy:
         k = self.kernels
         k.capacity_fit, k.capacity_headroom, k.incidence_matmul = self._real
         return False
+
+    def shard_calls(self, name):
+        """Calls of kernel `name` per SPMD shard thread, by shard index."""
+        pre = "spmd-shard-"
+        return {int(t[len(pre):]): n for (k, t), n in self.by_thread.items()
+                if k == name and t.startswith(pre)}
 
     def shapes(self):
         """The distinct launch shapes seen: capacity (C, N, R), incidence
@@ -934,17 +973,17 @@ class OperandSpy:
 
 
 def pipelined(mods, profile, n_nodes, n_pods, device=None, overlap=True,
-              max_batch=0, spy=None):
+              max_batch=0, spy=None, mesh=None):
     """One drain of `profile` through Scheduler.run_until_drained on a
-    fresh store, as bench.py run_once runs it. Returns (api, totals,
-    counters, spans, wall, launches)."""
+    fresh store, as bench.py run_once runs it (on `mesh` when given).
+    Returns (api, totals, counters, spans, wall, launches)."""
     import torch
     hollow, api_mod, Scheduler, kernels, COUNTERS = mods
     api = api_mod.ApiServerLite(max_log=max(200_000,
                                             3 * (n_nodes + n_pods)))
     hollow.load_cluster(api, hollow.hollow_nodes(n_nodes),
                         hollow.PROFILES[profile](n_pods))
-    sched = Scheduler(api, record_events=False, device=device)
+    sched = Scheduler(api, record_events=False, device=device, mesh=mesh)
     sched.start()
     # whether each dispatch returned while its wave job was still running
     # (the overlap the pipeline exists for)
@@ -988,6 +1027,9 @@ def pipelined(mods, profile, n_nodes, n_pods, device=None, overlap=True,
     launches = dict(kernels.LAUNCHES)
     snap = COUNTERS.snapshot()
     counters = {k: snap.get(k, (0, 0.0))[0] for k in PIPE_COUNTERS}
+    if mesh is not None or os.environ.get("GRAFT_SANITIZE") == "1":
+        counters.update({k: snap.get(k, (0, 0.0))[0]
+                         for k in MESH_COUNTERS})
     counters["dispatches_returned_busy"] = sum(busy)
     span_ms = {k: 1e3 * t for k, (_, t) in sorted(snap.items())
                if k.startswith("pipeline.") and t > 0}
@@ -1072,12 +1114,19 @@ def audit_store(api, profile, n_pods, exempt=frozenset()):
     return len(pods) - len(unbound), len(unbound)
 
 
+def placements(api):
+    return {p.key(): p.node_name for p in api.list("Pod")[0]}
+
+
 def pipelined_drains(mods, card):
     """Phase 6. Returns (launches summed over the three drains, max
-    abs err per kernel on this path)."""
+    abs err per kernel on this path, the density and mixed_affinity
+    placements at 5,000 x 30,000 and the CPU's at 512 x 3,000 (phase 11
+    holds the mesh's runs against them))."""
     kernels = mods[3]
     total = {k: 0 for k in kernels.LAUNCHES}
     err = {k: 0 for k in kernels.LAUNCHES}
+    flat = {}
     for profile in ("density", "binpack", "mixed_affinity"):
         spy = OperandSpy(kernels)
         api, tot, cnt, span_ms, wall, launches = pipelined(
@@ -1086,6 +1135,8 @@ def pipelined_drains(mods, card):
         bound, unbound = audit_store(api, profile, N_PODS)
         if profile != "binpack" and unbound:
             fail(f"pipelined {profile}: {unbound} pods unbound")
+        if profile != "binpack":
+            flat[profile] = placements(api)
         log(f"pipelined drain {profile}: {N_NODES} nodes x {N_PODS} pods "
             f"through Scheduler.run_until_drained, bound {bound}, "
             f"unschedulable {unbound}, wall {wall:.3f} s, "
@@ -1118,8 +1169,7 @@ def pipelined_drains(mods, card):
             overlap=overlap, max_batch=512)
         log(f"pipelined mixed_affinity 512 x 3000 ({tag}): wall "
             f"{wall:.3f} s, spans (ms) {json.dumps(span_ms)}")
-        runs[tag] = ({p.key(): p.node_name for p in api.list("Pod")[0]},
-                     tot, cnt)
+        runs[tag] = (placements(api), tot, cnt)
     ref = runs["CPU"]
     for tag in ("card", "card, overlap off"):
         got = runs[tag]
@@ -1130,7 +1180,8 @@ def pipelined_drains(mods, card):
     log(f"pipelined mixed_affinity 512 x 3000 (chunks of 512): card == "
         f"card with overlap off == CPU, {ref[1]['bound']} bound, "
         f"counters {json.dumps(ref[2])}")
-    return total, err
+    flat["check"] = ref[:2]
+    return total, err, flat
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3535,6 +3586,266 @@ def federation_and_fleet(mods, card):
     return total, err, {"route_scores": rs}
 
 
+# ---------------------------------------------------------------- phase 11
+
+MESH_D = 4               # 11a, 11d: the shards of one card
+SWEEP_D = (1, 2, 4)      # 11b: bench.py measure_scale_sweep's device counts
+SCALE_CHUNK = 4096       # bench.py _scale_drain_impl's chunk
+CPU_MESH_D = 8           # 11c: the reference's tier-1 mesh size
+
+
+def mesh_drains(mods, card, flat):
+    """11a: Scheduler(mesh=make_mesh(4)).run_until_drained() at 5,000 x
+    30,000, density and mixed_affinity, against phase 6's unsharded runs.
+    Returns (launches, max abs err per kernel)."""
+    hollow, api_mod, Scheduler, kernels, COUNTERS, mesh_mod = mods
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    n_local = N_NODES // MESH_D
+    delta_rows = 0
+    for profile in ("density", "mixed_affinity"):
+        spy = OperandSpy(kernels)
+        api, tot, cnt, span_ms, wall, launches = pipelined(
+            mods[:5], profile, N_NODES, N_PODS, spy=spy,
+            mesh=mesh_mod.make_mesh(MESH_D))
+        got = placements(api)
+        want = flat[profile]
+        diff = sum(got.get(k) != v for k, v in want.items())
+        if diff or len(got) != len(want):
+            fail(f"mesh {profile}: {diff} placements differ from the "
+                 f"unsharded drain")
+        bound, unbound = audit_store(api, profile, N_PODS)
+        if unbound:
+            fail(f"mesh {profile}: {unbound} pods unbound")
+        cap_sh, inc_sh = spy.shapes()
+        log(f"mesh drain {profile}: D = {MESH_D} on one card, {N_NODES} "
+            f"nodes x {N_PODS} pods, placements == the unsharded drain, "
+            f"bound {bound}, wall {wall:.3f} s, {N_PODS / wall:.0f} pods/s "
+            f"[{card}]")
+        log(f"mesh drain {profile} spans (ms): " + json.dumps(span_ms))
+        waves = max(cnt["engine.wave_dispatch"], 1)
+        log(f"mesh drain {profile} counters: " + json.dumps(cnt)
+            + f"; host_fetch_bytes per wave "
+              f"{cnt['engine.host_fetch_bytes'] / waves:.0f}, "
+              f"reduce_candidate_rows per dispatch "
+              f"{cnt['engine.reduce_candidate_rows'] / waves:.1f}")
+        per_shard = {k: spy.shard_calls(k) for k in kernels.LAUNCHES}
+        log(f"mesh drain {profile} launches {launches}, shapes "
+            f"(capacity (C, N, R)) {cap_sh}, (incidence (M, N, L)) "
+            f"{inc_sh}, per shard {json.dumps(per_shard)}")
+        if cnt["engine.reduce_candidate_rows"] == 0:
+            fail(f"mesh {profile}: no two-stage reduce counted")
+        # a drain of two dispatches syncs before its first harvest folds
+        # anything (no row delta yet); the three of mixed_affinity do not
+        delta_rows += cnt["engine.shard_delta_rows"]
+        need = ["capacity_fit"] + (["incidence_matmul"]
+                                   if profile == "mixed_affinity" else [])
+        for name in need:
+            per = spy.shard_calls(name)
+            if sorted(per) != list(range(MESH_D)) or launches[name] == 0:
+                fail(f"mesh {profile}: {name} did not launch on every "
+                     f"shard ({per})")
+            shapes = cap_sh if name == "capacity_fit" else inc_sh
+            if not any(sh[1] == n_local for sh in shapes):
+                fail(f"mesh {profile}: no {name} launch at the per-shard "
+                     f"width {n_local}")
+        for k, v in spy.check(f"mesh {profile}").items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+    if delta_rows == 0:
+        fail("mesh drains: no dynamic row rode the per-shard delta path")
+    return total, err
+
+
+def scale_drain(mods, n_devices, spy):
+    """11b: bench.py _scale_drain_impl's engine-level drain (dispatch /
+    harvest two deep, no apiserver) of density at 5,000 x 30,000 in
+    chunks of 4,096 on a mesh of `n_devices` (1: no mesh), with `spy`
+    capturing every launch shape. No warm-up drain: there is nothing to
+    compile, the kernels were built in phase 1. Returns (result dict,
+    launches)."""
+    import hashlib
+
+    import torch
+    hollow, cache_mod, SchedulingEngine, COUNTERS, kernels, mesh_mod = mods
+    cache = cache_mod.SchedulerCache()
+    for nd in hollow.hollow_nodes(N_NODES):
+        cache.add_node(nd)
+    engine = SchedulingEngine(
+        cache, mesh=mesh_mod.make_mesh(n_devices) if n_devices > 1
+        else None)
+    engine.track_dirty = True
+    engine.wave_pad_floor = SCALE_CHUNK
+    pending = hollow.PROFILES["density"](N_PODS)
+    bound, unsched, blocks, prev = {}, 0, [], None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    with spy:
+        while pending or prev is not None:
+            chunk = pending[:SCALE_CHUNK]
+            del pending[:SCALE_CHUNK]
+            handle = engine.dispatch_waves(chunk) if chunk else None
+            if handle is None and chunk:
+                fail("scale drain fell off the wave path")
+            if prev is not None:
+                h = engine.harvest_waves(prev)
+                for p in h.bound:
+                    bound[p.name] = p.node_name
+                unsched += len(h.unschedulable)
+                pending.extend(h.conflicts)
+                blocks.append(h.t_block)
+            prev = handle
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    snap = COUNTERS.snapshot()
+    engine.close()
+
+    def cnt(name):
+        return int(snap.get(name, (0, 0.0))[0])
+    digest = hashlib.sha256()
+    for k in sorted(bound):
+        digest.update(f"{k}:{bound[k]}\n".encode())
+    waves = max(len(blocks), 1)
+    return {"n_devices": n_devices, "bound": len(bound),
+            "unschedulable": unsched, "wall_s": round(wall, 3),
+            "pods_per_s": round(len(bound) / wall, 1), "waves": len(blocks),
+            "wave_block_p50_ms": round(
+                1e3 * sorted(blocks)[len(blocks) // 2], 2),
+            "host_fetch_bytes_per_wave": round(
+                cnt("engine.host_fetch_bytes") / waves),
+            "reduce_candidate_rows_per_dispatch": round(
+                cnt("engine.reduce_candidate_rows")
+                / max(cnt("engine.wave_dispatch"), 1), 1),
+            "shard_delta_rows": cnt("engine.shard_delta_rows"),
+            "shard_upload_bytes": cnt("engine.shard_upload_bytes"),
+            "device_upload_arrays": cnt("engine.device_upload_arrays"),
+            "placements_sha256": digest.hexdigest()}, launches
+
+
+def the_mesh(mods, card, flat):
+    """Phase 11: the node-axis mesh and the upload sanitizer on the card.
+    Returns (launches of 11a and 11b, max abs err per kernel)."""
+    import numpy as np
+    import torch
+    (hollow, api_mod, Scheduler, kernels, COUNTERS, mesh_mod, cache_mod,
+     SchedulingEngine, sanitize) = mods
+    t_phase = time.perf_counter()
+    pipe = (hollow, api_mod, Scheduler, kernels, COUNTERS, mesh_mod)
+    # 11a
+    total, err = mesh_drains(pipe, card, flat)
+    # 11b
+    sweep = []
+    for d in SWEEP_D:
+        spy = OperandSpy(kernels)
+        res, launches = scale_drain((hollow, cache_mod, SchedulingEngine,
+                                     COUNTERS, kernels, mesh_mod), d, spy)
+        cap_sh, _inc_sh = spy.shapes()
+        per = spy.shard_calls("capacity_fit")
+        log(f"scale drain D = {d}: " + json.dumps(res) + f" [{card}]")
+        log(f"scale drain D = {d} launches {launches}, capacity shapes "
+            f"(C, N, R) {cap_sh}, per shard {json.dumps(per)}")
+        if res["bound"] != N_PODS:
+            fail(f"scale drain D = {d}: bound {res['bound']}")
+        if launches["capacity_fit"] == 0:
+            fail(f"scale drain D = {d}: no capacity launch")
+        if d > 1 and res["shard_delta_rows"] == 0:
+            fail(f"scale drain D = {d}: no per-shard row delta")
+        # D = 1 is the unsharded engine: its launches run on the engine's
+        # own threads, not in shard threads
+        if d > 1 and sorted(per) != list(range(d)):
+            fail(f"scale drain D = {d}: capacity_fit did not launch on "
+                 f"every shard ({per})")
+        if not any(sh[1] == N_NODES // d for sh in cap_sh):
+            fail(f"scale drain D = {d}: no capacity launch at the "
+                 f"per-shard width {N_NODES // d}")
+        for k, v in spy.check(f"scale drain D = {d}").items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+        sweep.append(res)
+    shas = {r["placements_sha256"] for r in sweep}
+    if len(shas) != 1:
+        fail(f"scale drain: placements differ across D {SWEEP_D}")
+    log(f"scale drain: the same placements sha256 at D = {SWEEP_D} "
+        f"({shas.pop()[:16]}...); wall "
+        + ", ".join(f"D = {r['n_devices']} {r['wall_s']} s" for r in sweep)
+        + f" [{card}]; D shards share ONE card: this measures the sharded "
+          "path, not multi-card scaling")
+    # 11c: card == CPU at 512 x 3,000, D = 8
+    want_pl, want_tot = flat["check"]
+    for tag, dev, mesh in (
+            ("card", None, mesh_mod.make_mesh(CPU_MESH_D)),
+            ("CPU", "cpu", mesh_mod.make_mesh(CPU_MESH_D, device="cpu"))):
+        api, tot, cnt, _sp, wall, _l = pipelined(
+            pipe[:5], "mixed_affinity", 512, 3000, device=dev, mesh=mesh,
+            max_batch=512)
+        got = placements(api)
+        diff = sum(got[k] != v for k, v in want_pl.items())
+        if diff or tot != want_tot:
+            fail(f"mesh D = {CPU_MESH_D} 512 x 3000 on the {tag}: {diff} "
+                 f"placements differ from the unsharded CPU run")
+        log(f"mesh D = {CPU_MESH_D} mixed_affinity 512 x 3000 on the {tag}: "
+            f"== the unsharded CPU run, wall {wall:.3f} s")
+    # 11d: GRAFT_SANITIZE=1
+    old = os.environ.get("GRAFT_SANITIZE")
+    os.environ["GRAFT_SANITIZE"] = "1"
+    # count the checks as the seams make them: alias checks (copies) and
+    # seals (frozen sources)
+    seen = {"alias": 0, "freeze": 0}
+    real_alias, real_freeze = sanitize._assert_no_alias, sanitize.freeze
+
+    def alias(dev, host):
+        seen["alias"] += 1
+        return real_alias(dev, host)
+
+    def freeze(host):
+        seen["freeze"] += 1
+        return real_freeze(host)
+    sanitize._assert_no_alias, sanitize.freeze = alias, freeze
+    try:
+        for tag, mesh in (("one card", None),
+                          (f"mesh of {MESH_D}", mesh_mod.make_mesh(MESH_D))):
+            seen.update(alias=0, freeze=0)
+            api, tot, cnt, _sp, wall, _l = pipelined(
+                pipe[:5], "mixed_affinity", 512, 3000, mesh=mesh,
+                max_batch=512)
+            got = placements(api)
+            diff = sum(got[k] != v for k, v in want_pl.items())
+            if diff or tot != want_tot:
+                fail(f"sanitized drain ({tag}): {diff} placements differ "
+                     f"from the unsanitized run")
+            if seen["alias"] == 0 or seen["freeze"] == 0:
+                fail(f"sanitized drain ({tag}): the seams did not check "
+                     f"({seen})")
+            log(f"GRAFT_SANITIZE=1 mixed_affinity 512 x 3000 ({tag}): == "
+                f"the unsanitized run, {seen['alias']} alias checks and "
+                f"{seen['freeze']} seals at the seams over "
+                f"{cnt['engine.wave_dispatch']} harvests, wall {wall:.3f} s")
+        buf = np.arange(512, dtype=np.int32).reshape(64, 8)
+        real = sanitize._copy_ctor
+        sanitize._copy_ctor = lambda host, device: torch.from_numpy(host)
+        try:
+            sanitize.upload_copied(buf, "cpu")
+            fail("an aliasing upload constructor went uncaught")
+        except sanitize.AliasingViolation as e:
+            log(f"deliberate aliasing regression caught: {e}")
+        finally:
+            sanitize._copy_ctor = real
+    finally:
+        sanitize._assert_no_alias, sanitize.freeze = real_alias, real_freeze
+        if old is None:
+            os.environ.pop("GRAFT_SANITIZE", None)
+        else:
+            os.environ["GRAFT_SANITIZE"] = old
+    log(f"phase 11 launches {total}; phase 11 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3543,6 +3854,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from kubernetes_tpu_torch.analysis import sanitize
         from kubernetes_tpu_torch.api import policy as policy_mod
         from kubernetes_tpu_torch.api import scheme, serde, types, workloads
         from kubernetes_tpu_torch.engine import fastlane as fl_mod
@@ -3560,6 +3872,7 @@ def main() -> int:
         from kubernetes_tpu_torch.ops import federation as fed_ops
         from kubernetes_tpu_torch.ops import preempt as preempt_ops
         from kubernetes_tpu_torch.ops.priorities import DEFAULT_PRIORITIES
+        from kubernetes_tpu_torch.parallel import mesh as mesh_mod
         from kubernetes_tpu_torch.parallel import multiproc
         from kubernetes_tpu_torch.server import (apiserver_lite, daemon,
                                                  extender)
@@ -3618,7 +3931,7 @@ def main() -> int:
         fail("evaluate_pod never launched the incidence kernel")
 
     # 6. the pipelined drains
-    launches_pipe, err_pipe = pipelined_drains(
+    launches_pipe, err_pipe, flat_pipe = pipelined_drains(
         (hollow, apiserver_lite, Scheduler, kernels, COUNTERS), card)
     for k, v in err_pipe.items():
         max_err[k] = max(max_err[k], v)
@@ -3653,7 +3966,14 @@ def main() -> int:
         max_err[k] = max(max_err[k], v)
     dev_fns.update(dev_fns_p10)
 
-    # 11. summary
+    # 11. the node-axis mesh and the upload sanitizer
+    launches_p11, err_p11 = the_mesh(
+        (hollow, apiserver_lite, Scheduler, kernels, COUNTERS, mesh_mod,
+         cache_mod, SchedulingEngine, sanitize), card, flat_pipe)
+    for k, v in err_p11.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 12. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -3666,7 +3986,7 @@ def main() -> int:
             "launches": (launches_drain[name] + launches_eval[name]
                          + launches_pipe[name] + launches_ext[name]
                          + launches_p8[name] + launches_p9[name]
-                         + launches_p10[name]),
+                         + launches_p10[name] + launches_p11[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3680,7 +4000,8 @@ def main() -> int:
     log(f"launches: drains {launches_drain}, verdicts {launches_eval}, "
         f"pipelined drains {launches_pipe}, extender {launches_ext}, "
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
-        f"lane {launches_p9}, process fleet and federation {launches_p10}")
+        f"lane {launches_p9}, process fleet and federation {launches_p10}, "
+        f"mesh {launches_p11}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

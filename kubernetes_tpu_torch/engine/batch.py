@@ -32,6 +32,7 @@ from kubernetes_tpu_torch.ops import affinity as aff_ops
 from kubernetes_tpu_torch.ops import predicates as preds
 from kubernetes_tpu_torch.ops import priorities as prio
 from kubernetes_tpu_torch.ops.predicates import int_matmul
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -175,6 +176,7 @@ def copy_state(state: NodeState) -> NodeState:
     return NodeState(*(t.clone() for t in state))
 
 
+@mesh_mod.on_first_device(state_at=2)
 def gather_place_batch(cls_arr: Arrays, pc: torch.Tensor, nodes: Arrays,
                        state: NodeState, rr: torch.Tensor, priorities,
                        aff: Arrays = None,
@@ -184,7 +186,11 @@ def gather_place_batch(cls_arr: Arrays, pc: torch.Tensor, nodes: Arrays,
     """place_batch over per-pod rows gathered from class rows (pc = class
     index per pod). The capacity-independent [C, N] tensors are computed
     once at class level and gathered; `aff` stays class-level (the loop
-    indexes it by class) and `extra_score` is class-level [C, N]."""
+    indexes it by class) and `extra_score` is class-level [C, N].
+
+    Mesh-placed inputs (parallel/mesh): a LAYOUT departure from the
+    reference, which runs the scan on the sharded operands. Here the scan
+    runs unsharded on the mesh's first device (mesh.on_first_device)."""
     pcl = pc.long()
     parr = {k: v[pcl] for k, v in cls_arr.items()}
     ex = extra_score[pcl] if extra_score is not None else None
@@ -194,6 +200,7 @@ def gather_place_batch(cls_arr: Arrays, pc: torch.Tensor, nodes: Arrays,
                        pre=pre)
 
 
+@mesh_mod.on_first_device(state_at=2)
 def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
                 rr_counter: torch.Tensor, priorities, aff: Arrays = None,
                 pc: torch.Tensor = None,
@@ -209,6 +216,9 @@ def place_batch(pods: Arrays, nodes: Arrays, state: NodeState,
     spread_on) gates which parts run. `aff_init` = (commdom, committed,
     comm_cnt) seeds the occupancy carry with pods committed before this
     batch (the wave pass of the same chunk).
+
+    Mesh-placed inputs run unsharded on the mesh's first device, as in
+    gather_place_batch.
 
     Returns (selected [P] int32 node index or -1, fit_count [P] int32,
              final NodeState, final rr_counter)."""

@@ -37,8 +37,10 @@ Two drain modes:
 - stream(fastlane=...): the always-on loop with the Sparrow fast tier
   (engine/fastlane.py) for latency-critical pods between micro-waves.
 
-A mesh (node-axis sharding across several cards) is a later slice of the
-port and raises NotImplementedError naming its ROADMAP item by title.
+mesh=parallel/mesh.make_mesh(D): every node-indexed device tensor of the
+engine stays RESIDENT sharded across the mesh's D shards, and the wave
+loop runs its two-stage SPMD reduce; placements are bit-identical to the
+unsharded engine (a one-device mesh is no mesh).
 
 Error paths preserved:
 
@@ -92,9 +94,6 @@ from kubernetes_tpu_torch.utils.metrics import SchedulerMetrics
 from kubernetes_tpu_torch.utils.trace import SCHEDULE_TRACE_THRESHOLD_S, Trace
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
-MESH_SLICE = ("mesh sharding across several cards (parallel/mesh.py, "
-              "_waves_loop_spmd), ROADMAP §1 'Node-axis sharding across "
-              "several cards' of the port")
 
 
 def _queue_copy(pod: Pod) -> Pod:
@@ -120,8 +119,6 @@ class Scheduler:
                  policy=None,
                  now=time.monotonic,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_SLICE)
         self.api = api
         self.device = device
         self.scheduler_name = scheduler_name
@@ -140,10 +137,14 @@ class Scheduler:
             kernel_prios, self._policy_algos = algorithms_from_policy(policy)
             if policy.priorities is not None:
                 priorities = kernel_prios
+        # mesh: a 1-D node-axis parallel/mesh.Mesh makes every
+        # node-indexed device tensor RESIDENT-SHARDED across its devices
+        # and routes waves_loop through the two-stage SPMD reduce;
+        # placements stay bit-identical to the unsharded engine
         self.engine = SchedulingEngine(
             self.cache, priorities=priorities, device=device,
             workloads_provider=lambda: list(self._workloads.values()),
-            policy_algos=self._policy_algos)
+            policy_algos=self._policy_algos, mesh=mesh)
         # this Scheduler owns its cache exclusively and routes every
         # mutation through the engine's dirty notes, so refreshes may take
         # the targeted changed_hint path instead of walking all N nodes
@@ -1346,7 +1347,7 @@ class Scheduler:
             self.cache, priorities=self.engine.priorities,
             device=self.device,
             workloads_provider=lambda: list(self._workloads.values()),
-            policy_algos=self._policy_algos)
+            policy_algos=self._policy_algos, mesh=self.engine.mesh)
         self.engine.track_dirty = True
         self.engine.wave_pad_floor = pad_floor
         self.queue = SchedulingQueue(now=self._now)

@@ -28,6 +28,12 @@ PyTorch port of kubernetes_tpu/engine/scheduler_engine.py, on one device
   victim scan (ops/preempt.victim_scan) over the snapshot's priority-band
   columns, uploaded by ``_prio_on_device``.
 
+With a mesh (parallel/mesh), every node-indexed tensor the engine owns —
+the snapshot sync, the wave encodings' topology views, the committed-
+occupancy seed — is uploaded SHARDED over the mesh's devices and stays
+resident between waves (dynamic arrays re-upload only the shards owning
+dirty rows), and the wave loop runs its two-stage SPMD path.
+
 The reference overlaps device and host through JAX's asynchronous
 dispatch. Here the wave loop (one host check per wave) runs on a worker
 thread of the engine, on its own CUDA stream ordered after the dispatch's
@@ -36,13 +42,16 @@ round-robin counter a job chains from is final when it reads it. The job
 ends with the wave's one device->host copy, so a harvest never queues
 behind the next wave's work. Every host buffer a job reads is uploaded as
 a copy (convert.tensor_from_numpy), since the harvest folds commits into
-them in place while a later wave may still run.
+them in place while a later wave may still run; the uploads go through
+the sanitizer's seams (analysis/sanitize), which check that rule under
+GRAFT_SANITIZE=1.
 """
 
 from __future__ import annotations
 
 import dataclasses as _dc
 import functools
+import math
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -51,6 +60,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch import resolve_device
+from kubernetes_tpu_torch.analysis import sanitize
 from kubernetes_tpu_torch.api.types import Pod, SelectorOperator
 from kubernetes_tpu_torch.convert import tensor_from_numpy
 from kubernetes_tpu_torch.engine import waves
@@ -75,6 +85,7 @@ from kubernetes_tpu_torch.ops.oracle_ext import (
     term_matches_pod,
 )
 from kubernetes_tpu_torch.ops.predicates import bucket, int_matmul
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.classes import ClassBatch, pod_class_key
 from kubernetes_tpu_torch.state.snapshot import (
@@ -827,12 +838,18 @@ _AFF_SLICE3 = ("aff_allow", "aff_keymask", "anti_keymask", "p_keymask",
 _AFF_SLICE2 = ("forbid_static", "prio_static")
 
 
-def _aff_tail_arrays(adata, snap, cols: np.ndarray, device):
+def _aff_tail_arrays(adata, snap, cols: np.ndarray, device, mesh=None):
     """AffinityData tensors with every domain axis sliced to the tail's
     column projection, plus the matching `labels_aff` [N, Lp] node
     incidence the tail contracts against (place_batch and
     tail_rounds_loop swap it in for nodes["labels"] on the affinity side
-    only). Uploaded once per encoding, as copies."""
+    only). Uploaded once per encoding, as copies through the frozen seam
+    (nothing mutates these host arrays after the build; the sanitizer
+    seals them). On a mesh the node-axis members place sharded
+    (mesh.aff_spec), everything else replicated."""
+    def _pl(k):
+        return None if mesh is None \
+            else mesh_mod.Placement(mesh, mesh_mod.aff_spec(k))
     out = {}
     for k in aff_ops.AffinityData._DEVICE_KEYS:
         a = getattr(adata, k)
@@ -840,8 +857,10 @@ def _aff_tail_arrays(adata, snap, cols: np.ndarray, device):
             a = a[:, :, cols]
         elif k in _AFF_SLICE2:
             a = a[:, cols]
-        out[k] = tensor_from_numpy(a, device)
-    out["labels_aff"] = tensor_from_numpy(snap.labels[:, cols], device)
+        out[k] = sanitize.upload_frozen(a, device, _pl(k))
+    # advanced indexing already copies, so freezing the fresh array is free
+    out["labels_aff"] = sanitize.upload_frozen(snap.labels[:, cols], device,
+                                               _pl("labels_aff"))
     return out
 
 
@@ -1002,7 +1021,7 @@ class WaveHandle:
         self.wave_id = wave_id
         # filled by block(): the packed host result [3P+2] int32, the
         # final node state, the [C, N] occupancy (affinity waves) and the
-        # int64 round-robin counter, all from the job
+        # int64 round-robin counter
         self.packed_h = None
         self.state_out = None
         self.committed_out = None
@@ -1083,10 +1102,13 @@ class _WaveWorker:
 
 
 def _wave_job(cls_arr, nodes, state, pc_dev, counter_src, counter0,
-              priorities, extra, aff, committed_dev, act_dev, pre, p_pad):
-    """The worker's body for one dispatched wave: the wave loop, then its
-    one device->host copy. `counter_src` is the previous wave's job (its
-    counter is final: jobs run in order) or None (start from counter0)."""
+              priorities, extra, aff, committed_dev, act_dev, pre, p_pad,
+              spmd_mesh=None):
+    """The worker's body for one dispatched wave: the wave loop (the SPMD
+    path on a mesh), then its one device->host copy. `counter_src` is the
+    previous wave's job (its counter is final: jobs run in order) or None
+    (start from counter0). The fetch is synchronous on the job's stream,
+    so every output is complete by the time the harvest takes them."""
     dev = pc_dev.device
     if counter_src is not None:
         counter = counter_src.result()[3]
@@ -1096,7 +1118,7 @@ def _wave_job(cls_arr, nodes, state, pc_dev, counter_src, counter0,
     out = waves.waves_loop(cls_arr, nodes, state, pc_dev, counter,
                            priorities, 64, extra_score=extra, aff=aff,
                            committed0=committed_dev, active0=act_dev,
-                           pre=pre)
+                           pre=pre, spmd_mesh=spmd_mesh)
     packed, state_out = out[0], out[1]
     committed_out = out[2] if aff is not None else None
     counter_out = packed[3 * p_pad].to(torch.int64) & U32_MASK
@@ -1109,20 +1131,40 @@ def _wave_job(cls_arr, nodes, state, pc_dev, counter_src, counter0,
 
 
 class SchedulingEngine:
-    """Batch scheduling over a SchedulerCache on one device."""
+    """Batch scheduling over a SchedulerCache on one device, or on the
+    node-axis mesh `mesh` (parallel/mesh.Mesh)."""
 
     def __init__(self, cache: SchedulerCache,
                  priorities: Tuple[Tuple[str, int], ...] =
                  prio.DEFAULT_PRIORITIES, device=None,
-                 workloads_provider=None, policy_algos=None):
-        self.device = resolve_device(device)
+                 workloads_provider=None, policy_algos=None, mesh=None):
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
+        if mesh is not None and device is not None \
+                and torch.device(device).type != self.device.type:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {self.device}")
+        # resident device mesh: every node-indexed device tensor this
+        # engine owns is uploaded SHARDED across the mesh and stays
+        # resident between waves; waves_loop runs its two-stage SPMD
+        # path. A one-device mesh is no mesh (the unsharded engine IS the
+        # one-device layout).
+        self.mesh = None
+        self._rmesh = None
+        if mesh is not None and mesh.size > 1:
+            self.mesh = mesh
+            self._rmesh = mesh_mod.ResidentMesh(mesh)
         self.cache = cache
         self.priorities = priorities
         # Policy-configured parameterized algorithms (ServiceAffinity,
         # NodeLabelPresence, NodeLabel, ServiceAntiAffinity) — the
         # CreateFromConfig arguments (ops/policy_algos.py)
         self.policy_algos = policy_algos
-        self.snapshot = ClusterSnapshot()
+        # the node axis pads to a multiple of BOTH the baseline alignment
+        # (8) and the shard count, so the shards split it evenly on any
+        # mesh size (N padded to 8 need not divide by D = 3, 5, 6, 7)
+        self.snapshot = ClusterSnapshot() if self.mesh is None \
+            else ClusterSnapshot(node_pad=math.lcm(8, self.mesh.size))
         # PV/PVC mirror (the pvInfo/pvcInfo listers of factory.go); the
         # owner (Scheduler) mutates it and bumps .version on watch events
         self.volume_ctx = VolumeContext()
@@ -1442,7 +1484,8 @@ class SchedulingEngine:
                 # per-domain occupancy [C, L]: the contraction runs over
                 # nodes, so each sum is at most the pods the cluster holds
                 # (< 2^24) and int_matmul is exact here
-                commdom0 = int_matmul(committed0, nodes["labels"].T)
+                commdom0 = int_matmul(committed0,
+                                      mesh_mod.full(nodes["labels"]).T)
                 comm_cnt0 = committed0.sum(dim=1, dtype=I32)
                 aff_init = (commdom0, committed0, comm_cnt0)
             with timed_span("engine.strict_scan"):
@@ -1525,23 +1568,57 @@ class SchedulingEngine:
     def _nodes_on_device(self, port_words: int = 1) -> Dict[str, torch.Tensor]:
         """Incremental host->device sync: re-upload an array only when its
         shape changed or the snapshot marked it dirty. Every upload is a
-        COPY (tensor_from_numpy): the snapshot mutates these buffers in
-        place between batches (refresh deltas, apply_assume_delta) while a
-        pipelined wave may still read the tensors, so a tensor must never
-        alias one."""
+        COPY (sanitize.upload_copied, verified under GRAFT_SANITIZE=1): the
+        snapshot mutates these buffers in place between batches (refresh
+        deltas, apply_assume_delta) while a pipelined wave may still read
+        the tensors, so a tensor must never alias one.
+
+        With a resident mesh every array uploads SHARDED by the shared
+        spec tables, and the dynamic arrays ride the ROW-DELTA path: when
+        the snapshot can name the touched rows (snapshot.dirty_rows), only
+        the shards owning those rows re-upload (ResidentMesh.update_rows)
+        and untouched shards keep their tensors by reference
+        (engine.shard_delta_rows counts the rows, engine.shard_upload_bytes
+        the bytes actually shipped)."""
         snap = self.snapshot
+        rmesh = self._rmesh
+        rows = snap.dirty_rows if rmesh is not None else None
         uploaded = 0
+        delta_used = False
+        delta_bytes = 0
         for k in preds._NODE_ARRAY_KEYS:
             host = snap.port_bitmap[:, :port_words] if k == "port_bitmap" \
                 else getattr(snap, k)
             cur = self._device_nodes.get(k)
             if cur is None or tuple(cur.shape) != host.shape \
                     or k in snap.dirty:
-                self._device_nodes[k] = tensor_from_numpy(host, self.device)
+                if rmesh is not None:
+                    if rows is not None and cur is not None \
+                            and tuple(cur.shape) == host.shape \
+                            and k in snap.DYNAMIC:
+                        self._device_nodes[k] = rmesh.update_rows(cur, host,
+                                                                  rows)
+                        delta_used = True
+                        delta_bytes += rmesh.touched_nbytes(host, rows)
+                        continue
+                    self._device_nodes[k] = sanitize.upload_copied(
+                        host, self.device, mesh_mod.Placement(
+                            self.mesh, mesh_mod.node_spec(k)))
+                else:
+                    self._device_nodes[k] = sanitize.upload_copied(
+                        host, self.device)
                 uploaded += 1
         if uploaded:
             COUNTERS.inc("engine.device_upload_arrays", uploaded)
+        if delta_used:
+            # DISTINCT rows this sync shipped through the per-shard delta
+            # path (once, not once per dynamic array), plus the bytes moved
+            # (whole touched shards, every dynamic array included)
+            COUNTERS.inc("engine.shard_delta_rows", len(rows))
+            COUNTERS.inc("engine.shard_upload_bytes", delta_bytes)
         snap.dirty.clear()
+        if rmesh is not None:
+            snap.dirty_rows = set()  # arm row tracking for the next sync
         self._device_version = snap.version
         return self._device_nodes
 
@@ -1574,7 +1651,7 @@ class SchedulingEngine:
         # COPY, never alias: pod_count/allowed/band_* are live snapshot
         # arrays mutated in place between preemption rounds (refresh
         # deltas, apply_assume_delta band folds)
-        self._prio_dev = {k: tensor_from_numpy(v, self.device)
+        self._prio_dev = {k: sanitize.upload_copied(v, self.device)
                           for k, v in host.items()}
         self._prio_dev_version = snap.version
         return self._prio_dev
@@ -1638,6 +1715,11 @@ class SchedulingEngine:
         return cand, bound, class_of
 
     # ------------------------------------------------- pipelined drain
+
+    def _aff_placement(self, key: str):
+        """The mesh placement of an affinity tensor, or None unsharded."""
+        return None if self.mesh is None \
+            else mesh_mod.Placement(self.mesh, mesh_mod.aff_spec(key))
 
     def _kernel_priorities(self) -> Tuple[Tuple[str, int], ...]:
         return tuple((nm, w) for nm, w in self.priorities
@@ -1841,8 +1923,9 @@ class SchedulingEngine:
             enc.static_forbid_hit = sfh
             enc.aff_patch_dirty = True
         if enc.tail_cols is not None and enc.aff_tail_dev is not None:
-            enc.aff_tail_dev["labels_aff"] = tensor_from_numpy(
-                snap.labels[:, enc.tail_cols], self.device)
+            enc.aff_tail_dev["labels_aff"] = sanitize.upload_frozen(
+                snap.labels[:, enc.tail_cols], self.device,
+                self._aff_placement("labels_aff"))
         enc.labels_gen = snap.labels_gen
         COUNTERS.inc("engine.label_patch_rows", len(rows))
         if rows and RECORDER.enabled:
@@ -1860,16 +1943,21 @@ class SchedulingEngine:
             merged = enc.static_forbid_hit.astype(np.int32)
             if enc.foreign_forbid is not None:
                 merged = merged + enc.foreign_forbid
-            enc.aff_wave_dev["static_forbid"] = tensor_from_numpy(
-                np.minimum(merged, 127).astype(np.int8), self.device)
-            enc.aff_wave_dev["key_node"] = tensor_from_numpy(
-                enc.key_node, self.device)
+            enc.aff_wave_dev["static_forbid"] = sanitize.upload_frozen(
+                np.minimum(merged, 127).astype(np.int8), self.device,
+                self._aff_placement("static_forbid"))
+            # a copy is frozen, never the live overlay: it keeps mutating
+            # patch over patch (copy-on-write in _try_patch_labels)
+            enc.aff_wave_dev["key_node"] = sanitize.upload_frozen(
+                enc.key_node.copy(), self.device,
+                self._aff_placement("key_node"))
         if enc.aff_tail_dev is not None and enc.tail_cols is not None:
             base = enc.adata.forbid_static[:, enc.tail_cols].astype(np.int32)
             if enc.foreign_forbid_dom is not None:
                 base = base + enc.foreign_forbid_dom
-            enc.aff_tail_dev["forbid_static"] = tensor_from_numpy(
-                np.minimum(base, 127).astype(np.int8), self.device)
+            enc.aff_tail_dev["forbid_static"] = sanitize.upload_frozen(
+                np.minimum(base, 127).astype(np.int8), self.device,
+                self._aff_placement("forbid_static"))
         enc.aff_patch_dirty = False
 
     def _wave_encoding(self, pods: Sequence[Pod], infos):
@@ -2002,18 +2090,19 @@ class SchedulingEngine:
             spread_on = bool(w_sp) and bool(adata.spread_needed)
             if fits_on:
                 key_node, static_forbid_hit = _aff_node_views(adata, snap)
+                # static per encoding — the frozen seam, like the tail;
+                # node-axis members shard over the resident mesh
                 aff_wave_dev = {
-                    "m_anti": tensor_from_numpy(adata.m_anti, self.device),
-                    "key_node": tensor_from_numpy(key_node, self.device),
-                    "static_forbid": tensor_from_numpy(static_forbid_hit,
-                                                       self.device),
-                    "wave_gate": tensor_from_numpy(adata.wave_gate,
-                                                   self.device),
-                }
+                    k: sanitize.upload_frozen(a, self.device,
+                                              self._aff_placement(k))
+                    for k, a in (("m_anti", adata.m_anti),
+                                 ("key_node", key_node),
+                                 ("static_forbid", static_forbid_hit),
+                                 ("wave_gate", adata.wave_gate))}
             if fits_on or prio_on or spread_on:
                 tail_cols = _aff_tail_cols(adata, prio_on)
                 aff_tail_dev = _aff_tail_arrays(adata, snap, tail_cols,
-                                                self.device)
+                                                self.device, self.mesh)
         COUNTERS.inc("engine.wave_encode_build")
         cls_arr = preds.pod_arrays_padded(rb, c_pad, self.device)
         if host_fit_rows:
@@ -2024,7 +2113,7 @@ class SchedulingEngine:
             hf = np.ones((c_pad, snap.valid.shape[0]), dtype=bool)
             for c, row in host_fit_rows.items():
                 hf[c] = row
-            cls_arr["host_fit"] = tensor_from_numpy(hf, self.device)
+            cls_arr["host_fit"] = sanitize.upload_frozen(hf, self.device)
         policy_cols = False
         if policy_active:
             pfit, pscore = self.policy_algos.static_class_arrays(
@@ -2161,7 +2250,11 @@ class SchedulingEngine:
                 # committed_nodes uploads as a COPY: the harvest folds
                 # commits into it in place (np.add.at) while this wave's
                 # job may still read the tensor
-                committed_dev = tensor_from_numpy(enc.committed_nodes, dev)
+                committed_dev = sanitize.upload_copied(
+                    enc.committed_nodes, dev,
+                    None if self.mesh is None
+                    else mesh_mod.Placement(self.mesh,
+                                            mesh_mod.committed_spec()))
                 # the job's own view of the dict: a later patch replaces
                 # entries, never the tensors this job reads
                 aff = dict(enc.aff_wave_dev)
@@ -2175,7 +2268,7 @@ class SchedulingEngine:
                 _wave_job, enc.cls_arr, nodes, state,
                 tensor_from_numpy(pc_pad, dev), self._rr_chain,
                 self.rr.counter, self._kernel_priorities(), extra, aff,
-                committed_dev, act_dev, pre, p_pad))
+                committed_dev, act_dev, pre, p_pad, self.mesh))
             self._rr_chain = job
             blind: set = set()
             self._blind_listeners.append(blind)
@@ -2236,6 +2329,14 @@ class SchedulingEngine:
         packed_h = handle.packed_h
         # the per-wave device->host payload: [3P+2] int32 regardless of N
         COUNTERS.inc("engine.host_fetch_bytes", int(packed_h.nbytes))
+        if self.mesh is not None:
+            # traffic of the two-stage winner reduce: each INNER wave
+            # iteration's cross-shard stage moves the [D, C] tie-count
+            # table plus O(P) candidate combines — scaled by waves_used
+            # (packed[3P+1]), not per dispatch
+            COUNTERS.inc("engine.reduce_candidate_rows",
+                         self.mesh.size * enc.c_pad
+                         * int(packed_h[3 * p_pad + 1]))
         sel = packed_h[:n].copy()
         fc = packed_h[p_pad:p_pad + n].copy()
         act = packed_h[2 * p_pad:2 * p_pad + n].astype(bool)
@@ -2463,7 +2564,10 @@ class SchedulingEngine:
         tail_prios = self._kernel_priorities()
         if enc.adata is not None and (enc.fits_on or enc.prio_on):
             aff_arrays = enc.aff_tail_dev
-            committed0 = handle.committed_out.to(I32) \
+            # under a mesh the tail runs on the assembled node axis
+            # (tail_rounds_loop / gather_place_batch docstrings), so its
+            # seed is assembled too
+            committed0 = mesh_mod.full(handle.committed_out).to(I32) \
                 if handle.committed_out is not None else torch.zeros(
                     (enc.c_pad, int(handle.nodes["alloc"].shape[0])),
                     dtype=I32, device=dev)
@@ -2472,7 +2576,8 @@ class SchedulingEngine:
             # int_matmul is exact: each sum counts class-c pods in one
             # domain, at most the pods the cluster holds (nodes x allowed
             # pods: 550,000 at 5,000 x 110) < 2^24
-            commdom0 = int_matmul(committed0, aff_arrays["labels_aff"].T)
+            commdom0 = int_matmul(committed0,
+                                  mesh_mod.full(aff_arrays["labels_aff"]).T)
             aff_init = (commdom0, committed0,
                         committed0.sum(dim=1, dtype=I32))
             aff_mode = (enc.fits_on, enc.prio_on, False)

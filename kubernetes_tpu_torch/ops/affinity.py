@@ -56,7 +56,6 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.types import MAX_PRIORITY, Node, Pod
-from kubernetes_tpu_torch.convert import arrays_from_numpy
 from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.ops.predicates import int_matmul
 from kubernetes_tpu_torch.ops.oracle_ext import (
@@ -458,9 +457,12 @@ class AffinityData:
 
     def device_arrays(self, device) -> Arrays:
         """The static class arrays the device functions read, as tensors
-        on ``device`` (copies)."""
-        return arrays_from_numpy({k: getattr(self, k)
-                                  for k in self._DEVICE_KEYS}, device)
+        on ``device``: copies, through the sanitizer's frozen seam —
+        nothing mutates them after __init__, and GRAFT_SANITIZE=1 seals
+        the host sources to make that claim crash-enforced."""
+        from kubernetes_tpu_torch.analysis.sanitize import upload_frozen
+        return {k: upload_frozen(getattr(self, k), device)
+                for k in self._DEVICE_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -627,14 +629,26 @@ def step_prio_counts_all(aff: Arrays, pre: Arrays, commdom: torch.Tensor,
     return counts + hits[c_dim * t_dim:]
 
 
-def interpod_score(counts: torch.Tensor, fits: torch.Tensor) -> torch.Tensor:
+def _across(col, how: str, x: torch.Tensor) -> torch.Tensor:
+    """`x` combined across a mesh's shards by `how` ("psum", "pmax",
+    "pmin") when `col` is a shard's column vtable (engine/waves._ShardCol);
+    `x` itself on one device (col None)."""
+    return x if col is None else getattr(col, how)(x)
+
+
+def interpod_score(counts: torch.Tensor, fits: torch.Tensor,
+                   col=None) -> torch.Tensor:
     """0..10 normalization over the filtered set (interpod_affinity.go:224-
     239): max clamped >= 0, min clamped <= 0, integer floor division.
-    Shape-generic: [..., N] with the node axis last."""
+    Shape-generic: [..., N] with the node axis last. With `col` (a shard's
+    column vtable, engine/waves._ShardCol) the node axis is one shard's
+    and the extremes combine across the shards."""
     masked_max = torch.where(fits, counts, -(2 ** 31 - 1)).amax(
         dim=-1, keepdim=True)
     masked_min = torch.where(fits, counts, 2 ** 31 - 1).amin(
         dim=-1, keepdim=True)
+    masked_max = _across(col, "pmax", masked_max)
+    masked_min = _across(col, "pmin", masked_min)
     mx = masked_max.clamp(min=0)
     mn = masked_min.clamp(max=0)
     rng = mx - mn
@@ -659,21 +673,27 @@ SPREAD_ZONE_COUNT_CAP = (1 << 15) - 1
 
 
 def spread_score(aff: Arrays, has_sel: torch.Tensor, counts: torch.Tensor,
-                 fits: torch.Tensor) -> torch.Tensor:
+                 fits: torch.Tensor, col=None) -> torch.Tensor:
     """selector_spreading.go:134-185 with the zone blend as the reference
     package defines it — the exact rational floor
 
         (10(M-c)*Mz + 20(Mz-zc)*M) // (3*M*Mz)
 
-    in pure int32. Shape-generic: counts/fits [..., N], has_sel [...]."""
+    in pure int32. Shape-generic: counts/fits [..., N], has_sel [...].
+    With `col` (a shard's column vtable) the node axis is one shard's: the
+    node maximum and the per-zone sums over nodes combine across the
+    shards."""
     counts = torch.where(fits, counts, 0).clamp(max=SPREAD_NODE_COUNT_CAP)
-    max_node = counts.amax(dim=-1, keepdim=True)
+    max_node = _across(col, "pmax", counts.amax(dim=-1, keepdim=True))
     zmat = aff["Z"].to(I32)                                    # [N, ZN]
-    zc = int_matmul(counts, zmat.T).clamp(max=SPREAD_ZONE_COUNT_CAP)
+    zc = _across(col, "psum", int_matmul(counts, zmat.T)).clamp(
+        max=SPREAD_ZONE_COUNT_CAP)
     node_zone = aff["node_has_zone"]                           # [N]
     has_sel = has_sel[..., None]
-    have_zones = (fits & node_zone).any(dim=-1, keepdim=True) & has_sel
-    zone_seen = int_matmul((fits & node_zone).to(I32), zmat.T) > 0
+    have_zones = (_across(col, "pmax", (fits & node_zone).any(
+        dim=-1, keepdim=True).to(I32)) > 0) & has_sel
+    zone_seen = _across(col, "psum", int_matmul(
+        (fits & node_zone).to(I32), zmat.T)) > 0
     max_zone = torch.where(zone_seen, zc, 0).amax(dim=-1, keepdim=True)
     node_zc = int_matmul(zc, zmat)                             # own-zone sum
     ten = MAX_PRIORITY

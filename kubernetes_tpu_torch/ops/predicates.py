@@ -32,6 +32,7 @@ import torch
 
 from kubernetes_tpu_torch.convert import tensor_from_numpy
 from kubernetes_tpu_torch.ops import kernels
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -60,8 +61,10 @@ def int_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 
 def node_arrays(snap, device) -> Arrays:
-    """The node-side tensor dict from a ClusterSnapshot (copies)."""
-    return {k: tensor_from_numpy(getattr(snap, k), device)
+    """The node-side tensor dict from a ClusterSnapshot: copies, through
+    the sanitizer's view seam (verified copies under GRAFT_SANITIZE=1)."""
+    from kubernetes_tpu_torch.analysis.sanitize import upload_view
+    return {k: upload_view(getattr(snap, k), device)
             for k in _NODE_ARRAY_KEYS}
 
 
@@ -317,8 +320,11 @@ def static_fits(pods: Arrays, nodes: Arrays) -> torch.Tensor:
     return out
 
 
+@mesh_mod.per_shard(axis=1)
 def fits(pods: Arrays, nodes: Arrays) -> torch.Tensor:
-    """The full predicate chain against a frozen snapshot -> bool [P,N]."""
+    """The full predicate chain against a frozen snapshot -> bool [P,N].
+    Elementwise over the node axis: mesh-placed inputs (parallel/mesh)
+    give [P, N] sharded on axis 1."""
     return (
         static_fits(pods, nodes)
         & node_condition_fit(pods, nodes)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of kubernetes_tpu_torch, and neither
 chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
-package imports with both blocked; a spawned cell process or fleet worker
+package imports with both blocked, and its mesh and sanitizer run so; a spawned cell process or fleet worker
 of the port never imports either; and its entry points refuse to run on a
 box without a card unless the caller names the CPU."""
 
@@ -15,6 +15,7 @@ import kubernetes_tpu_torch
 from kubernetes_tpu_torch.engine.scheduler import Scheduler
 from kubernetes_tpu_torch.federation.cell import CellAgent
 from kubernetes_tpu_torch.federation.router import FederationRouter, LocalCell
+from kubernetes_tpu_torch.parallel.mesh import make_mesh
 from kubernetes_tpu_torch.engine.scheduler_engine import (
     SchedulingEngine,
     evaluate_pod,
@@ -41,9 +42,11 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [REPO / "chip_smoke.py",
-                            REPO / "kernel_ab.py"],
+SCANNED = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                       REPO / "kernel_ab.py"]
+
+
+@pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
@@ -59,6 +62,31 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import kubernetes_tpu_torch as k\n"
         "for m in pkgutil.walk_packages(k.__path__, 'kubernetes_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_mesh_and_sanitizer_are_scanned_and_run_with_jax_blocked():
+    """The two modules that replace the reference's last jax-importing
+    device modules (parallel/mesh.py, analysis/sanitize.py) are in the
+    scan above, and import and run in a process where jax and the
+    reference package cannot be imported."""
+    for rel in ("parallel/mesh.py", "analysis/sanitize.py"):
+        assert PKG / rel in SCANNED
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        "import numpy as np\n"
+        "from kubernetes_tpu_torch.parallel import mesh\n"
+        "from kubernetes_tpu_torch.analysis import sanitize\n"
+        "m = mesh.make_mesh(2, device='cpu')\n"
+        "t = sanitize.upload_copied(np.arange(8), 'cpu',\n"
+        "                           mesh.Placement(m, 0))\n"
+        "assert [s.shape[0] for s in t.shards] == [4, 4]\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -86,6 +114,8 @@ def test_entry_points_default_to_the_card():
         FederationRouter([LocalCell("c0", None)])
     with pytest.raises(RuntimeError, match="CUDA"):
         CellAgent("c0", [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(4)
 
 
 class _StopAtOnce:

@@ -4,8 +4,8 @@ seeded pods go through both, and the pod->node placements, the drain
 totals and the wave/tail/fence counters must be equal — with the strict
 tail run as conflict rounds and as the per-pod scan, and with overlap on
 and off (overlap=False must give the same placements as overlap=True).
-Also: the blind-window fence cases and the refusal of a mesh, a later
-slice of the port."""
+Also: the blind-window fence cases, and the drain on an 8-shard node-axis
+mesh against the reference's 8-device mesh and the unsharded port."""
 
 import sys
 
@@ -153,7 +153,7 @@ SCENARIOS = {
 
 
 def _drain(side, build, chunk, max_batch, overlap=True, tail_rounds=True,
-           tail_rounds_min=None):
+           tail_rounds_min=None, mesh_shards=0):
     types, wl, hollow, api_mod, sched_mod, trace = side
     nodes, pods, workloads = build(types, wl, hollow)
     api = api_mod.ApiServerLite()
@@ -161,6 +161,13 @@ def _drain(side, build, chunk, max_batch, overlap=True, tail_rounds=True,
         api.create("Service", w)
     hollow.load_cluster(api, nodes, pods)
     kw = {"device": "cpu"} if side is PORT else {}
+    if mesh_shards:
+        if side is PORT:
+            from kubernetes_tpu_torch.parallel.mesh import make_mesh
+            kw["mesh"] = make_mesh(mesh_shards, device="cpu")
+        else:
+            from kubernetes_tpu.parallel.mesh import make_mesh
+            kw["mesh"] = make_mesh(mesh_shards)
     s = sched_mod.Scheduler(api, record_events=False, **kw)
     s.pipeline_chunk = chunk
     s.engine.tail_rounds = tail_rounds
@@ -255,17 +262,15 @@ def test_overlap_is_stable_under_a_short_switch_interval():
         sys.setswitchinterval(old)
 
 
-def _sched(pods, **kw):
-    _types, _wl, hollow, api_mod, sched_mod, _tr = PORT
-    api = api_mod.ApiServerLite()
-    hollow.load_cluster(api, hollow.hollow_nodes(8), pods)
-    s = sched_mod.Scheduler(api, record_events=False, device="cpu", **kw)
-    s.start()
-    return s
-
-
-def test_mesh_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError,
-                       match=r"mesh.*ROADMAP §1 'Node-axis sharding across "
-                             r"several cards'"):
-        _sched([], mesh=object())
+def test_mesh_drain_matches_reference_and_unsharded():
+    """Scheduler(mesh=...) on 8 CPU shards drains the mixed_affinity
+    profile exactly as the reference's Scheduler on its 8-device mesh and
+    as the unsharded port: placements, totals and counters."""
+    build = _profile("mixed_affinity", 64, 600)
+    ref = _drain(REF, build, 128, 128, mesh_shards=8)
+    port = _drain(PORT, build, 128, 128, mesh_shards=8)
+    flat = _drain(PORT, build, 128, 128)
+    assert port[0] == ref[0] == flat[0]
+    assert port[1] == ref[1] == flat[1]
+    assert port[2] == ref[2] == flat[2]
+    assert port[1]["bound"] == 600
