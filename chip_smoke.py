@@ -62,8 +62,9 @@ phase fails. Phases:
      the fused [C, N] batch, /prioritize riding /filter's memo and the
      oracle route. Then the HTTP verdict round (bench.py
      measure_extender_latency) and a fleet of 8 concurrent compat
-     scheduleOne frontends binding 1,000 density pods with SnapshotGen and
-     IdempotencyKey, 409s retried, any other error failing; the store is
+     scheduleOne frontends binding 400 density pods (cut from 1,000)
+     with SnapshotGen and IdempotencyKey, 409s retried, any other error
+     failing; the store is
      audited. Each kernel's operands at every launch shape of the phase
      are held against its plain version, and the batch's stacked
      incidence product is timed;
@@ -98,8 +99,9 @@ phase fails. Phases:
      bind, no double eviction or ghost victim, no 60 s window past the
      disruption budget, the victim scan on the card every round. 9c: a
      SchedulerDaemon whose componentconfig turns PodPriority on, over
-     5,000 full nodes and 1,000 pending prod/system pods, stepped until
-     nothing placeable is left (classic preemption audited). 9d: bench.py
+     5,000 full nodes and 500 pending prod/system pods (cut from 1,000),
+     stepped until nothing placeable is left (classic preemption
+     audited). 9d: bench.py
      measure_fastlane_mixed's three windows at 5,000 nodes; the outcome
      counters partition the fast pods and the probe window's evals run on
      the card. 9e: card == CPU for gang_mix at 512 x 3,000 (pipelined,
@@ -153,12 +155,43 @@ phase fails. Phases:
      512 x 3,000 mixed_affinity drain on the card and on a D = 4 mesh,
      equal to the unsanitized run, with the seams' alias checks and seals
      counted; an aliasing upload constructor on a CPU tensor raises;
- 12. print the per-kernel summary line, then the result line.
+ 12. the full apiserver in front of the card's scheduler. 12a: the
+     in-process ApiServer() with the default admission chain; the bench
+     Namespace, a LimitRange with default container requests, two
+     PriorityClasses (PodPriority on) and a ResourceQuota of exactly the
+     pods meant to be admitted; 5,000 hollow nodes created through
+     api.create, Scheduler(api) started on the card, then mixed_affinity
+     pods created through the chain (5,000 admitted, cut from 30,000
+     for the chain's O(objects) lists per create; 20% with their
+     requests stripped, 10% bench-high) plus 64 past the quota, and
+     run_until_drained(); phase 6's store audit, exactly the 64 refused
+     by ResourceQuota and the quota's used pods equal to the admitted
+     count, every stripped pod defaulted and every pod given its class's
+     priority, no bind error, the batched binding audit entries (code
+     200) covering every bound pod, both kernels launched and held
+     against their plain versions at every launch shape. 12b: a secure
+     ApiServer on the same store (token authn, the bootstrap RBAC, a
+     RoleBinding giving one user edit in the rest Namespace, a mutating
+     webhook on localhost) behind RestServer: the bound user creates 256
+     pods over HTTP with RestClient, an unbound user's create is 403 and
+     audited 403, 12a's scheduler binds the 256, each stamped by the
+     webhook; field-selector lists over HTTP equal the store's filter on
+     8 nodes; /openapi/v2 and /version answer. 12c: tests/
+     test_replication.py's failover storm at 5,000 nodes x 10,000 pods
+     behind ApiServer over a durable store in a temporary directory: WAL
+     shipped, classic rounds of 4,000 and 2,000 on the card with a ship
+     between, the standby promoted, a fresh Scheduler(ApiServer(store=
+     promoted)) drains; every pod shipped and bound, the restored bound
+     count between the shipped prefix and the primary's, no bind error,
+     no pod bound to two nodes. 12d: 12a's path at 512 x 3,000 on the
+     card and on the CPU: equal placements, totals, refusals, create and
+     refusal audit entries (in order) and pods over the binding entries;
+ 13. print the per-kernel summary line, then the result line.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7, 8a-8c, 9a-9d, 10a-10b, 11a and 11b; in 10a and 10b each child process
-counts its own) and read just after it; launches made by the comparisons
-do not count.
+7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b and 12a-12c; in 10a and 10b each
+child process counts its own) and read just after it; launches made by
+the comparisons do not count.
 """
 
 from __future__ import annotations
@@ -1186,7 +1219,10 @@ def pipelined_drains(mods, card):
 
 # ---------------------------------------------------------------- phase 7
 
-EXT_FLEET_PODS = 1000
+# the fleet's depth: cut from 1,000 pods to 400 so that the whole run,
+# phase 12 included, stays under 10 minutes on a slow host (the fleet runs
+# at about 12 scheduleOnes/s, host-bound)
+EXT_FLEET_PODS = 400
 EXT_FRONTENDS = 8
 EXT_LATENCY_ROUNDS = 20
 EXT_COUNTERS = ("extender.fused_eval", "extender.fused_eval_batch",
@@ -1981,7 +2017,7 @@ CHURN = {"rate": 2000.0, "duration_s": 4.0, "drain_s": 6.0,
 CHURN_NODES = 240
 PRIO_FILL_PER_NODE = 19           # 19 x 200m: 95% of a hollow node's 4,000m
 PRIO_STREAM = 10_000              # 5 s at 2,000/s
-PRIO_DAEMON_PODS = 1000
+PRIO_DAEMON_PODS = 500          # cut from 1,000 for the run's time (phase 12)
 # bench.py measure_fastlane_mixed's defaults, n_nodes at the headline size
 FASTLANE = {"n_nodes": 5000, "rate": 2000.0, "fast_rate": 100.0,
             "duration_s": 3.0, "budget_ms": 250.0, "probe_pods": 64}
@@ -3846,6 +3882,528 @@ def the_mesh(mods, card, flat):
     return total, err
 
 
+# ---------------------------------------------------------------- phase 12
+
+# 12a's depth: 5,000 admitted pods, cut from 30,000. Every create runs
+# the admission chain, whose LimitRanger and ResourceQuota each list
+# their kind over the whole store (O(objects) a create, the reference's
+# own cost), so creates slow down as the store fills; and the classic
+# round's strict scan steps once per padded affinity row
+P12_NODES = 5000
+P12_ADMIT = 5000
+P12_OVER = 64                  # creates past the quota, all refused
+P12_CHECK = (512, 3000)        # 12d's card == CPU
+P12_REST_PODS = 256            # 12b's creates over HTTP
+P12_FIELD_NODES = 8            # 12b's field-selector lists
+P12_FAILOVER = (5000, 10000)   # 12c: the reference's storm, 5x its nodes
+P12_REQUESTS = {"cpu": 150, "memory": 300 << 20}  # the LimitRange default
+P12_CLASSES = {"bench-high": 1000, "bench-low": 10}
+P12_QUOTA_MSG = "exceeded quota: bench-pods, requested: pods=1"
+STAMP_LABEL = "audit/stamped"
+
+
+class StampingWebhook:
+    """A mutating admission backend on localhost: every object it reviews
+    comes back with STAMP_LABEL set (the AdmissionReview round trip of
+    admission/webhook.py)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                review = json.loads(self.rfile.read(n))
+                obj = dict(review["request"]["object"])
+                obj["metadata"] = dict(obj["metadata"])
+                labels = dict(obj["metadata"].get("labels") or {})
+                labels[STAMP_LABEL] = "true"
+                obj["metadata"]["labels"] = labels
+                body = json.dumps({"response": {
+                    "allowed": True, "patchedObject": obj}}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._srv.server_address[1]}/admit"
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=10)
+
+
+def audit_row(a):
+    return (a.user, a.verb, a.resource, a.namespace, a.name, a.code,
+            a.level)
+
+
+def batch_size(a):
+    """Pods in one bind_many audit entry ("<batch of N bindings>"), else
+    None."""
+    if a.resource == "pods" and a.name.startswith("<batch of "):
+        return int(a.name.split()[2])
+    return None
+
+
+def front_door_pods(hollow, n):
+    """mixed_affinity pods for 12a: every fifth (from the second) with its
+    container requests stripped, so that LimitRanger defaults them; one
+    in ten carries bench-high, the rest bench-low. Stripped pods get
+    containers of their own: the profile's pods share their template's."""
+    import dataclasses
+    pods = hollow.mixed_affinity_pods(n)
+    stripped, high = set(), set()
+    for i, p in enumerate(pods):
+        if i % 5 == 1:
+            p.containers = [dataclasses.replace(c, requests={})
+                            for c in p.containers]
+            stripped.add(p.name)
+        p.priority_class = "bench-high" if i % 10 == 3 else "bench-low"
+        if i % 10 == 3:
+            high.add(p.name)
+    return pods, stripped, high
+
+
+def front_door_run(mods, n_nodes, n_admit, device=None, spy=None):
+    """12a's path: the in-process ApiServer() with the default admission
+    chain; the bench Namespace, a LimitRange with default container
+    requests, two PriorityClasses and a ResourceQuota of n_admit pods;
+    n_nodes hollow nodes created through api.create; the Scheduler
+    started; n_admit + P12_OVER pods created through the chain; then
+    run_until_drained() with PodPriority on (the classic rounds). The
+    caller turns the gate on. Returns a dict of what the checks read;
+    the scheduler is left open for 12b."""
+    import contextlib
+    import torch
+    (hollow, workloads, cluster, apiserver, Scheduler, kernels,
+     Rejected) = mods
+    api = apiserver.ApiServer()
+    api.create("Namespace", workloads.Namespace(name="bench"))
+    api.create("LimitRange", cluster.LimitRange(
+        name="bench-defaults", namespace="bench",
+        limits=[cluster.LimitRangeItem(
+            type="Container", default_request=dict(P12_REQUESTS))]))
+    for name, value in P12_CLASSES.items():
+        api.create("PriorityClass",
+                   workloads.PriorityClass(name=name, value=value))
+    api.create("ResourceQuota", cluster.ResourceQuota(
+        name="bench-pods", namespace="bench", hard={"pods": n_admit}))
+    t0 = time.perf_counter()
+    for node in hollow.hollow_nodes(n_nodes):
+        api.create("Node", node)
+    node_s = time.perf_counter() - t0
+    sched = Scheduler(api, record_events=False, device=device)
+    sched.start()
+    pods, stripped, high = front_door_pods(hollow, n_admit + P12_OVER)
+    # the scheduler binds through bind_many (ApiServer has no
+    # bind_pods_bulk); note when each batch returns
+    bind_at = []
+    real_bind_many = api.bind_many
+
+    def bind_many(bindings, cred=None):
+        out = real_bind_many(bindings, cred)
+        bind_at.append(time.perf_counter())
+        return out
+
+    api.bind_many = bind_many
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    refused = []
+    t_first = time.perf_counter()
+    for p in pods:
+        try:
+            api.create("Pod", p)
+        except Rejected as e:
+            refused.append((p.name, str(e)))
+    t_created = time.perf_counter()
+    with spy if spy is not None else contextlib.nullcontext():
+        tot = sched.run_until_drained()
+    if on_card:
+        torch.cuda.synchronize()
+    t_drained = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    return {
+        "api": api, "sched": sched, "pods": pods, "stripped": stripped,
+        "high": high, "refused": refused, "tot": tot,
+        "launches": launches, "node_creates_per_s": n_nodes / node_s,
+        "creates_per_s": len(pods) / (t_created - t_first),
+        "drain_s": t_drained - t_created,
+        "first_create_to_last_bind_s": (max(bind_at) - t_first
+                                        if bind_at else None)}
+
+
+def check_front_door(run, n_admit, tag):
+    """12a's checks on a front_door_run result (also 12d's runs)."""
+    store = run["api"].store
+    tot = run["tot"]
+    pods = run["pods"]
+    want_refused = [p.name for p in pods[n_admit:]]
+    if [n for n, _ in run["refused"]] != want_refused:
+        fail(f"{tag}: refused {len(run['refused'])} creates, want the last "
+             f"{P12_OVER}")
+    bad = [m for _, m in run["refused"] if not m.startswith(P12_QUOTA_MSG)]
+    if bad:
+        fail(f"{tag}: a refusal not by ResourceQuota: {bad[0]}")
+    quota = store.get("ResourceQuota", "bench", "bench-pods")
+    if quota.used.get("pods") != n_admit:
+        fail(f"{tag}: quota used {quota.used}, admitted {n_admit}")
+    refused = {n for n, _ in run["refused"]}
+    for p in pods:
+        if p.name in refused:
+            continue
+        got = store.get("Pod", "bench", p.name)
+        if p.name in run["stripped"] and any(
+                c.requests != P12_REQUESTS for c in got.containers):
+            fail(f"{tag}: {p.name} was not defaulted by LimitRanger: "
+                 f"{[c.requests for c in got.containers]}")
+        want = P12_CLASSES["bench-high" if p.name in run["high"]
+                           else "bench-low"]
+        if got.priority != want:
+            fail(f"{tag}: {p.name} priority {got.priority}, want {want}")
+    if tot["bind_errors"]:
+        fail(f"{tag}: bind_errors {tot['bind_errors']}")
+    batches = [a for a in run["api"].audit_log
+               if batch_size(a) is not None]
+    if not batches or any(a.code != 200 for a in batches):
+        fail(f"{tag}: binding audit entries {len(batches)}, codes "
+             f"{sorted({a.code for a in batches})}")
+    if sum(batch_size(a) for a in batches) != tot["bound"]:
+        fail(f"{tag}: the binding entries hold "
+             f"{sum(batch_size(a) for a in batches)} pods, bound "
+             f"{tot['bound']}")
+    return len(batches)
+
+
+def rest_front_door(mods, run, card):
+    """12b: a secure ApiServer on 12a's store (token authn, the bootstrap
+    RBAC, a RoleBinding giving one user edit in `rest`, a mutating
+    webhook), RestServer over it; 256 pods created over HTTP by the bound
+    user, one refused for an unbound one; 12a's scheduler on the card
+    binds the 256. Returns the launches of that drain."""
+    import torch
+    (hollow, kernels, apiserver, rest_http, rest_client, admission,
+     webhook, authn, rbac, workloads, api_types) = mods
+    store = run["api"].store
+    tokens = {"edit-token": rbac.UserInfo("rest-editor"),
+              "admin-token": rbac.UserInfo(
+                  "rest-admin", groups=[rbac.SYSTEM_MASTERS]),
+              "stranger-token": rbac.UserInfo("stranger")}
+    backend = StampingWebhook()
+    secure = apiserver.ApiServer(
+        store=store, auth=True,
+        authenticator=authn.UnionAuthenticator(
+            [authn.TokenAuthenticator(tokens)]))
+    secure.admission = admission.AdmissionChain(
+        admission.default_plugins() + [webhook.GenericAdmissionWebhook([
+            webhook.WebhookHook(
+                name="stamper", url=backend.url, mutating=True,
+                rules=[webhook.Rule(operations=["CREATE"],
+                                    kinds=["Pod"])])])],
+        store=store)
+    secure.bootstrap_rbac()
+    admin = authn.Credential(token="admin-token")
+    secure.create("Namespace", workloads.Namespace(name="rest"), cred=admin)
+    secure.create("RoleBinding", rbac.RoleBinding(
+        name="rest-editor", namespace="rest",
+        subjects=[rbac.Subject("User", "rest-editor")],
+        role_ref=rbac.RoleRef("ClusterRole", "edit")), cred=admin)
+    srv = rest_http.RestServer(secure)
+    srv.start()
+    sched = run["sched"]
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        editor = rest_client.RestClient(base, token="edit-token")
+        pods = hollow.density_pods(P12_REST_PODS, namespace="rest")
+        t0 = time.perf_counter()
+        for p in pods:
+            editor.create("Pod", p)
+        create_s = time.perf_counter() - t0
+        stranger = rest_client.RestClient(base, token="stranger-token")
+        try:
+            stranger.create("Pod", api_types.make_pod(
+                "stranger-0", namespace="rest", cpu=100))
+            fail("12b: an unbound user's create was admitted")
+        except rest_client.HttpError as e:
+            if e.code != 403:
+                fail(f"12b: an unbound user's create returned {e.code}")
+        denied = [a for a in secure.audit_log if a.user == "stranger"]
+        if [(a.verb, a.resource, a.namespace, a.name, a.code)
+                for a in denied] != [("create", "pods", "rest",
+                                      "stranger-0", 403)]:
+            fail(f"12b: the refusal's audit entries: "
+                 f"{[audit_row(a) for a in denied]}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        tot = sched.run_until_drained()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t1
+        launches = dict(kernels.LAUNCHES)
+        if tot["bound"] != P12_REST_PODS or tot["bind_errors"]:
+            fail(f"12b: the card's scheduler bound {tot}")
+        got = [store.get("Pod", "rest", p.name) for p in pods]
+        unbound = sum(1 for p in got if not p.node_name)
+        unstamped = sum(1 for p in got
+                        if p.labels.get(STAMP_LABEL) != "true")
+        if unbound or unstamped:
+            fail(f"12b: {unbound} rest pods unbound, {unstamped} without "
+                 f"the webhook's stamp")
+        if secure.admission.plugins[-1].calls != P12_REST_PODS:
+            fail(f"12b: the webhook was called "
+                 f"{secure.admission.plugins[-1].calls} times")
+        admin_client = rest_client.RestClient(base, token="admin-token")
+        nodes = sorted({p.node_name for p in got})[:P12_FIELD_NODES]
+        for n in nodes:
+            listed, _rv = admin_client.list(
+                "Pod", field_selector=f"spec.nodeName={n}")
+            want = sorted(p.key() for p in store.list("Pod")[0]
+                          if p.node_name == n)
+            if sorted(p.key() for p in listed) != want or not want:
+                fail(f"12b: field-selector list on {n}: "
+                     f"{len(listed)} pods, the store holds {len(want)}")
+        spec = admin_client.openapi()
+        version = admin_client.version()
+        if not spec.get("paths") or version.get("major") != "1":
+            fail("12b: /openapi/v2 or /version did not answer")
+    finally:
+        srv.stop()
+        backend.stop()
+    log(f"12b REST front door: {P12_REST_PODS} pods created over HTTP by "
+        f"the bound user in {create_s:.3f} s "
+        f"({P12_REST_PODS / create_s:.0f} creates/s, token authn, RBAC, "
+        f"the default chain and the stamping webhook), the unbound user's "
+        f"create 403 and audited 403; the card's scheduler bound all "
+        f"{P12_REST_PODS} in {drain_s:.3f} s, every one stamped; "
+        f"field-selector lists equal the store on {len(nodes)} nodes; "
+        f"/openapi/v2 ({len(spec['paths'])} paths) and /version answer; "
+        f"launches {launches} [{card}]")
+    return launches
+
+
+def wal_failover(mods, card, spy):
+    """12c: tests/test_replication.py's failover storm behind the front
+    door at P12_FAILOVER on the card. Returns the launches of the
+    primary's rounds and the promoted scheduler's drain."""
+    import tempfile
+    import torch
+    (kernels, apiserver, apiserver_lite, replication, chaosmonkey,
+     api_types, workloads, Scheduler) = mods
+    n_nodes, n_pods = P12_FAILOVER
+    max_log = 4 * (n_nodes + n_pods)
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wal_") as tmp:
+        p_dir, s_dir = os.path.join(tmp, "p"), os.path.join(tmp, "s")
+        api = apiserver.ApiServer(store=apiserver_lite.ApiServerLite(
+            data_dir=p_dir, max_log=max_log))
+        api.create("Namespace", workloads.Namespace(name="default"))
+        t0 = time.perf_counter()
+        for i in range(n_nodes):
+            api.create("Node", api_types.make_node(
+                f"node-{i:04d}", cpu=4000, memory=16 << 30))
+        for i in range(n_pods):
+            api.create("Pod", api_types.make_pod(f"pod-{i:05d}", cpu=100))
+        create_s = time.perf_counter() - t0
+        standby = replication.WalShippingStandby(p_dir, s_dir)
+        standby.ship()
+        sched = Scheduler(api, record_events=False)
+        sched.start()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with spy:
+            sched.schedule_round(max_batch=4000)
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            shipped_bound = sum(1 for p in api.store.list("Pod")[0]
+                                if p.node_name)
+            standby.ship()
+            kernels.reset_launch_counts()
+            sched.schedule_round(max_batch=2000)
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+        sched.engine.close()
+        bound_primary = sum(1 for p in api.store.list("Pod")[0]
+                            if p.node_name)
+        if shipped_bound < 4000 or bound_primary < shipped_bound + 2000:
+            fail(f"12c: the primary bound {shipped_bound} then "
+                 f"{bound_primary}")
+        state = {}
+
+        def primary_dies_standby_promotes():
+            state["store"] = standby.promote(max_log=max_log)
+
+        def converge():
+            store = state["store"]
+            pods = store.list("Pod")[0]
+            if len(pods) != n_pods:
+                fail(f"12c: {len(pods)} pods restored, {n_pods} shipped")
+            restored = {p.key(): p.node_name for p in pods if p.node_name}
+            if not shipped_bound <= len(restored) <= bound_primary:
+                fail(f"12c: {len(restored)} bound after promotion, not in "
+                     f"[{shipped_bound}, {bound_primary}]")
+            sched2 = Scheduler(apiserver.ApiServer(store=store),
+                               record_events=False)
+            sched2.start()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            with spy:
+                tot = sched2.run_until_drained()
+            torch.cuda.synchronize()
+            state["converge_s"] = time.perf_counter() - t1
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            sched2.engine.close()
+            if tot["bind_errors"]:
+                fail(f"12c: bind_errors {tot['bind_errors']}")
+            state.update(restored=len(restored), tot=tot)
+            binds = {}
+            for e in store._log:
+                if e.kind == "Pod" and e.type == "MODIFIED" \
+                        and e.obj.node_name:
+                    binds.setdefault(e.obj.key(), set()).add(
+                        e.obj.node_name)
+            twice = [k for k, v in binds.items()
+                     if len(v) > 1 or (k in restored
+                                       and v != {restored[k]})]
+            if twice:
+                fail(f"12c: {len(twice)} pods bound to two nodes, e.g. "
+                     f"{twice[0]}")
+
+        cm = chaosmonkey.Chaosmonkey(primary_dies_standby_promotes)
+        cm.register(chaosmonkey.Test(test=converge, name="store-failover"))
+        cm.do()
+        unbound = [p.name for p in state["store"].list("Pod")[0]
+                   if not p.node_name]
+        if unbound:
+            fail(f"12c: {len(unbound)} pods never bound")
+    log(f"12c WAL-shipping failover, {n_nodes} nodes x {n_pods} pods behind "
+        f"ApiServer over a durable store: creates {create_s:.3f} s "
+        f"({(n_nodes + n_pods) / create_s:.0f}/s), shipped "
+        f"{standby.bytes_shipped} bytes in {standby.ships} passes with "
+        f"{shipped_bound} pods bound, the primary reached {bound_primary}, "
+        f"{state['restored']} bound after promotion; the promoted "
+        f"store's fresh scheduler converged in {state['converge_s']:.3f} s "
+        f"(totals {json.dumps(state['tot'])}), no pod bound twice; "
+        f"launches {launches} [{card}]")
+    return launches
+
+
+def front_door(mods, card):
+    """Phase 12: the port's scheduler on the card behind the full
+    apiserver. Returns (launches of 12a-12c, max abs err per kernel)."""
+    (hollow, kernels, features, workloads, cluster, apiserver,
+     apiserver_lite, rest_http, rest_client, admission, webhook, authn,
+     rbac, api_types, replication, chaosmonkey, Scheduler) = mods
+    t_phase = time.perf_counter()
+    run_mods = (hollow, workloads, cluster, apiserver, Scheduler, kernels,
+                admission.Rejected)
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    gate = features.DEFAULT_FEATURE_GATE.enabled("PodPriority")
+    features.DEFAULT_FEATURE_GATE.set("PodPriority", True)
+    try:
+        # 12a
+        spy = OperandSpy(kernels)
+        run = front_door_run(run_mods, P12_NODES, P12_ADMIT, spy=spy)
+        _, unbound = audit_store(run["api"].store, "mixed_affinity",
+                                 P12_ADMIT)
+        n_batches = check_front_door(run, P12_ADMIT, "12a")
+        if unbound or run["tot"]["bound"] != P12_ADMIT:
+            fail(f"12a: {unbound} pods unbound, totals {run['tot']}")
+        launches = run["launches"]
+        if launches["capacity_fit"] == 0 or \
+                launches["incidence_matmul"] == 0:
+            fail(f"12a: a kernel never launched behind the front door "
+                 f"({launches})")
+        cap_shapes, inc_shapes = spy.shapes()
+        for k, v in spy.check("12a front door").items():
+            err[k] = max(err[k], v)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"12a front door: {P12_NODES} nodes ("
+            f"{run['node_creates_per_s']:.0f} node creates/s) x "
+            f"{P12_ADMIT + P12_OVER} pod creates through ApiServer's "
+            f"default admission chain at {run['creates_per_s']:.0f} "
+            f"creates/s, {len(run['refused'])} refused by ResourceQuota; "
+            f"drain wall {run['drain_s']:.3f} s (PodPriority on: classic "
+            f"rounds), first create to last bind "
+            f"{run['first_create_to_last_bind_s']:.3f} s; totals "
+            f"{json.dumps(run['tot'])}; {len(run['stripped'])} stripped "
+            f"pods defaulted, {len(run['high'])} high; {n_batches} "
+            f"binding audit entries (code 200), audit ring "
+            f"{len(run['api'].audit_log)}; launches {launches}, shapes "
+            f"(capacity (C, N, R)) {cap_shapes}, (incidence (M, N, L)) "
+            f"{inc_shapes} [{card}]")
+        # 12b
+        try:
+            got = rest_front_door(
+                (hollow, kernels, apiserver, rest_http, rest_client,
+                 admission, webhook, authn, rbac, workloads, api_types),
+                run, card)
+        finally:
+            run["sched"].engine.close()
+        for k, v in got.items():
+            total[k] += v
+        # 12d: card == CPU at 512 x 3,000
+        runs = {}
+        n_nodes, n_admit = P12_CHECK
+        for tag, dev in (("card", None), ("CPU", "cpu")):
+            r = front_door_run(run_mods, n_nodes, n_admit, device=dev)
+            r["sched"].engine.close()
+            check_front_door(r, n_admit, f"12d {tag}")
+            log(f"12d front door {n_nodes} x {n_admit} on the {tag}: "
+                f"{r['creates_per_s']:.0f} creates/s, drain wall "
+                f"{r['drain_s']:.3f} s, totals {json.dumps(r['tot'])}")
+            runs[tag] = (
+                placements(r["api"].store), r["tot"], r["refused"],
+                [audit_row(a) for a in r["api"].audit_log
+                 if a.verb == "create" and batch_size(a) is None],
+                sum(batch_size(a) or 0 for a in r["api"].audit_log))
+        names = ("placements", "totals", "refused creates",
+                 "create and refusal audit entries",
+                 "pods over the binding entries")
+        for name, a, b in zip(names, runs["card"], runs["CPU"]):
+            if a != b:
+                fail(f"12d: card != CPU in {name}")
+        log(f"12d front door {n_nodes} x {n_admit}: card == CPU in "
+            f"placements, totals, {len(runs['CPU'][2])} refusals, "
+            f"{len(runs['CPU'][3])} create audit entries and "
+            f"{runs['CPU'][4]} pods over the binding entries")
+    finally:
+        features.DEFAULT_FEATURE_GATE.set("PodPriority", gate)
+    # 12c (PodPriority back as it was: the promoted store drains through
+    # the pipeline)
+    spy = OperandSpy(kernels)
+    got = wal_failover((kernels, apiserver, apiserver_lite, replication,
+                        chaosmonkey, api_types, workloads, Scheduler),
+                       card, spy)
+    if got["capacity_fit"] == 0:
+        fail("12c: no capacity launch")
+    for k, v in spy.check("12c failover").items():
+        err[k] = max(err[k], v)
+    for k, v in got.items():
+        total[k] += v
+    log(f"phase 12 launches {total}; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3881,6 +4439,14 @@ def main() -> int:
         from kubernetes_tpu_torch.testing import churn
         from kubernetes_tpu_torch.utils import features
         from kubernetes_tpu_torch.utils.trace import COUNTERS
+        from kubernetes_tpu_torch import admission
+        from kubernetes_tpu_torch.admission import webhook
+        from kubernetes_tpu_torch.api import cluster, rbac
+        from kubernetes_tpu_torch.auth import authn
+        from kubernetes_tpu_torch.cli import rest_client
+        from kubernetes_tpu_torch.server import (apiserver, replication,
+                                                 rest_http)
+        from kubernetes_tpu_torch.testing import chaosmonkey
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -3973,7 +4539,15 @@ def main() -> int:
     for k, v in err_p11.items():
         max_err[k] = max(max_err[k], v)
 
-    # 12. summary
+    # 12. the full apiserver in front of the card's scheduler
+    launches_p12, err_p12 = front_door(
+        (hollow, kernels, features, workloads, cluster, apiserver,
+         apiserver_lite, rest_http, rest_client, admission, webhook, authn,
+         rbac, types, replication, chaosmonkey, Scheduler), card)
+    for k, v in err_p12.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 13. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -3986,7 +4560,8 @@ def main() -> int:
             "launches": (launches_drain[name] + launches_eval[name]
                          + launches_pipe[name] + launches_ext[name]
                          + launches_p8[name] + launches_p9[name]
-                         + launches_p10[name] + launches_p11[name]),
+                         + launches_p10[name] + launches_p11[name]
+                         + launches_p12[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4001,7 +4576,7 @@ def main() -> int:
         f"pipelined drains {launches_pipe}, extender {launches_ext}, "
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
-        f"mesh {launches_p11}")
+        f"mesh {launches_p11}, front door {launches_p12}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,8 @@
 """The port stands alone: no module of kubernetes_tpu_torch, and neither
 chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
-package imports with both blocked, and its mesh and sanitizer run so; a spawned cell process or fleet worker
+package imports with both blocked, its mesh, sanitizer and front door
+(admission, auth, quota, the full apiserver, REST, WAL shipping) import
+and run so; a spawned cell process or fleet worker
 of the port never imports either; and its entry points refuse to run on a
 box without a card unless the caller names the CPU."""
 
@@ -21,6 +23,7 @@ from kubernetes_tpu_torch.engine.scheduler_engine import (
     evaluate_pod,
     evaluate_pods_batch,
 )
+from kubernetes_tpu_torch.server.apiserver import ApiServer
 from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
 from kubernetes_tpu_torch.server.daemon import SchedulerDaemon
 from kubernetes_tpu_torch.server.extender import TPUExtenderBackend
@@ -94,6 +97,51 @@ def test_mesh_and_sanitizer_are_scanned_and_run_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+FRONT_DOOR = ("quota/__init__.py", "quota/evaluator.py",
+              "auth/__init__.py", "auth/authn.py", "auth/authz.py",
+              "admission/__init__.py", "admission/chain.py",
+              "admission/plugins.py", "admission/webhook.py",
+              "api/fields.py", "server/extensions.py", "server/apiserver.py",
+              "server/openapi.py", "server/rest_http.py",
+              "server/replication.py", "cli/__init__.py",
+              "cli/rest_client.py", "testing/chaosmonkey.py")
+
+
+def test_front_door_is_scanned_and_runs_with_jax_blocked():
+    """The full apiserver's modules are in the scan above, and they
+    import and serve one admitted create in a process where jax and the
+    reference package cannot be imported."""
+    for rel in FRONT_DOOR:
+        assert PKG / rel in SCANNED, rel
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        "import kubernetes_tpu_torch.admission\n"
+        "import kubernetes_tpu_torch.auth.authn\n"
+        "import kubernetes_tpu_torch.auth.authz\n"
+        "import kubernetes_tpu_torch.quota\n"
+        "import kubernetes_tpu_torch.cli.rest_client\n"
+        "import kubernetes_tpu_torch.server.rest_http\n"
+        "import kubernetes_tpu_torch.server.replication\n"
+        "from kubernetes_tpu_torch.server.apiserver import ApiServer\n"
+        "from kubernetes_tpu_torch.server.openapi import build_spec\n"
+        "from kubernetes_tpu_torch.api.types import make_pod\n"
+        "from kubernetes_tpu_torch.api.workloads import Namespace\n"
+        "api = ApiServer()\n"
+        "api.create('Namespace', Namespace(name='iso'))\n"
+        "api.create('Pod', make_pod('p', namespace='iso'))\n"
+        "assert api.get('Pod', 'iso', 'p') is not None\n"
+        "assert build_spec()['paths']\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'kubernetes_tpu')\n"
+        "             and sys.modules[m] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_entry_points_default_to_the_card():
     import torch
     if torch.cuda.is_available():
@@ -104,6 +152,8 @@ def test_entry_points_default_to_the_card():
         evaluate_pod(None, {}, ClusterSnapshot(), ())
     with pytest.raises(RuntimeError, match="CUDA"):
         Scheduler(ApiServerLite())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scheduler(ApiServer())
     with pytest.raises(RuntimeError, match="CUDA"):
         TPUExtenderBackend()
     with pytest.raises(RuntimeError, match="CUDA"):
