@@ -71,13 +71,14 @@ phase fails. Phases:
   8. the scheduler daemon with a Policy (the v1.7 knob set of Kubernetes'
      compatibility_test.go, no extender) from a --policy-config-file, on
      5,000 hollow nodes labeled region / zone / foo (90%) / bar (half)
-     and 30,000 pending pods: mixed_affinity plus 1% host-static pods
+     and pending pods: mixed_affinity plus 1% host-static pods
      (five ORed node-selector terms) and 1/300 host-exact pods (nine host
      ports; two Services coupled by ServiceAffinity on region).
-     8a (depth cut to 10,000 pods): two SchedulerDaemons on one fake
+     8a (depth cut to 5,000 pods): two SchedulerDaemons on one fake
      clock; A leads, runs one classic round over half the queue and
      crashes holding its lease; B waits it out, relists and finishes with
-     step(). 8b: the pipelined drain of the same store contents, Scheduler(policy=...)
+     step(). 8b (depth cut to 15,000 pods): the pipelined drain of the
+     same kind of store, Scheduler(policy=...)
      .run_until_drained(): no pipeline flush, the host-exact rows ride
      to the oracle tail. 8c: the strict classic round, mixed_affinity at
      5,000 x 2,000. Each run is audited from the store (phase 6's audit,
@@ -99,7 +100,7 @@ phase fails. Phases:
      bind, no double eviction or ghost victim, no 60 s window past the
      disruption budget, the victim scan on the card every round. 9c: a
      SchedulerDaemon whose componentconfig turns PodPriority on, over
-     5,000 full nodes and 500 pending prod/system pods (cut from 1,000),
+     5,000 full nodes and 250 pending prod/system pods (cut from 1,000),
      stepped until nothing placeable is left (classic preemption
      audited). 9d: bench.py
      measure_fastlane_mixed's three windows at 5,000 nodes; the outcome
@@ -186,12 +187,41 @@ phase fails. Phases:
      no pod bound to two nodes. 12d: 12a's path at 512 x 3,000 on the
      card and on the CPU: equal placements, totals, refusals, create and
      refusal audit entries (in order) and pods over the binding entries;
- 13. print the per-kernel summary line, then the result line.
+ 13. the controller manager, the cloud provider and volumes in front of
+     the card's scheduler, and the flight recorder's trace. 13a:
+     ApiServerLite with 5,000 hollow nodes (zone and region labels),
+     the ControllerManager over it on a FakeCloud, the card's Scheduler
+     watching the same store; 1,000 GCE PDs created in the cloud across
+     the zones, their PersistentVolumes created through ApiServer (the
+     default chain plus PersistentVolumeLabel, which stamps each PV with
+     its disk's zone), 1,000 claims bound by the PV binder; then 100
+     Deployments x 100 replicas (templates: mixed_affinity's first
+     hundred pods, so hostname anti-affinity, zone packing and their
+     targets are among them), one DaemonSet (one pod per node, bound by
+     the controller), one Job of 200 and 1,000 bare pods each mounting a
+     claim; pump_until_stable(), run_until_drained() (pipelined), pump
+     (the attach/detach controller attaches every disk in the cloud);
+     half the Deployments scaled up by half, pump, drain, pump. Phase
+     6's store audit with the DaemonSet's pods counted, every pod bound,
+     one ReplicaSet per Deployment of its size, one DaemonSet pod per
+     node, each claim bound and its pod in its PV's zone, no node past
+     16 PDs, each disk attached to exactly its pod's node; both kernels
+     launched and held against their plain versions at every launch
+     shape. 13b: `python -m kubernetes_tpu_torch.observability --trace`'s
+     main() at 5,000 x 30,000 mixed_affinity on the card: one dispatch,
+     device-eval and bind-flush span per wave engine.wave_dispatch
+     counted, every span longer than 0, the device-window share; then a
+     second recorded drain of the same build under torch.profiler: the
+     card's busy share (kernels and copies over the drain's wall) and
+     its idle share. 13c: 13a at 512 nodes x 10 Deployments + 64 PD pods
+     on the card and on the CPU: equal placements, ReplicaSets, PV
+     bindings and attachments;
+ 14. print the per-kernel summary line, then the result line.
 
 Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b and 12a-12c; in 10a and 10b each
-child process counts its own) and read just after it; launches made by
-the comparisons do not count.
+7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a and 13b; in 10a and 10b
+each child process counts its own) and read just after it; launches made
+by the comparisons do not count.
 """
 
 from __future__ import annotations
@@ -212,9 +242,11 @@ INT8_TENSOR_OPS_PER_S = 1979e12  # int8 tensor cores
 
 N_NODES = 5000
 N_PODS = 30000
-# 8a's depth: cut from 30,000 to 10,000 pods so that the whole run,
-# phase 9 included, stays near 8 minutes; 8b keeps the full 30,000
-P8A_PODS = 10000
+# phase 8's depth, cut for the whole run's time: 8a from 30,000 pods to
+# 10,000 (phase 9) and to 5,000 (phase 13), 8b from 30,000 to 15,000
+# (phase 13)
+P8A_PODS = 5000
+P8B_PODS = 15000
 I32_MAX = 2 ** 31 - 1
 FLUSH_BYTES = 256 << 20     # written between cold launches; L2 is 50 MB
 
@@ -911,23 +943,26 @@ class OperandSpy:
         # (kernel, thread name) -> calls on the card: a mesh's SPMD
         # shards run in threads named spmd-shard-<d>
         self.by_thread = {}
+        # capture key -> calls on the card
+        self.by_shape = {}
         self._real = (kernels.capacity_fit, kernels.capacity_headroom,
                       kernels.incidence_matmul)
 
-    def _note(self, name, t):
+    def _note(self, name, t, shape_key):
         if t.is_cuda:
             import threading
             key = (name, threading.current_thread().name)
             self.by_thread[key] = self.by_thread.get(key, 0) + 1
+            self.by_shape[shape_key] = self.by_shape.get(shape_key, 0) + 1
 
     def __enter__(self):
         k = self.kernels
         fit, head, inc = self._real
 
         def capacity_fit(pod_req, alloc, requested, zero_req=None):
-            self._note("capacity_fit", pod_req)
             key = ("mask", tuple(pod_req.shape), tuple(alloc.shape),
                    zero_req is not None)
+            self._note("capacity_fit", pod_req, key)
             if pod_req.is_cuda and key not in self.cap:
                 self.cap[key] = tuple(
                     None if t is None else t.clone()
@@ -935,15 +970,15 @@ class OperandSpy:
             return fit(pod_req, alloc, requested, zero_req)
 
         def capacity_headroom(*ops):
-            self._note("capacity_fit", ops[0])
             key = ("wave", tuple(ops[0].shape), tuple(ops[2].shape), True)
+            self._note("capacity_fit", ops[0], key)
             if ops[0].is_cuda and key not in self.cap:
                 self.cap[key] = tuple(t.clone() for t in ops)
             return head(*ops)
 
         def incidence_matmul(a, b_t):
-            self._note("incidence_matmul", a)
             key = (tuple(a.shape), tuple(b_t.shape))
+            self._note("incidence_matmul", a, key)
             if a.is_cuda and key not in self.inc:
                 self.inc[key] = (a.clone(), b_t.clone())
             return inc(a, b_t)
@@ -963,6 +998,18 @@ class OperandSpy:
         pre = "spmd-shard-"
         return {int(t[len(pre):]): n for (k, t), n in self.by_thread.items()
                 if k == name and t.startswith(pre)}
+
+    def launches_by_shape(self):
+        """Calls on the card per launch: capacity ("mask" or "wave", C, N,
+        R), incidence ("incidence", M, N, L)."""
+        out = {}
+        for key, n in self.by_shape.items():
+            if key[0] in ("mask", "wave"):
+                k = (key[0], key[1][0], key[2][0], key[1][1])
+            else:
+                k = ("incidence", key[0][0], key[1][0], key[0][1])
+            out[k] = out.get(k, 0) + n
+        return sorted(out.items())
 
     def shapes(self):
         """The distinct launch shapes seen: capacity (C, N, R), incidence
@@ -1929,19 +1976,19 @@ def daemon_and_policy(mods, card, device=None):
         # 8b: the pipelined drain of the same store contents
         spy = OperandSpy(kernels)
         api, tot, rep = policy_drain(
-            smods, policy_world(wmods, N_NODES, N_PODS, True), policy,
+            smods, policy_world(wmods, N_NODES, P8B_PODS, True), policy,
             device=device, spy=spy)
-        audit_policy(api, "8b pipelined", N_PODS)
+        audit_policy(api, "8b pipelined", P8B_PODS)
         del api
         cnt = rep["counters"]
         if cnt["stream.chunk_flush"] != 0:
             fail(f"8b: {cnt['stream.chunk_flush']} pipeline flushes")
-        n_exact = N_PODS // 300
+        n_exact = P8B_PODS // 300
         if cnt["engine.wave_host_rows"] < n_exact \
                 or cnt["engine.wave_host_tail"] < n_exact:
             fail(f"8b: host rows {cnt['engine.wave_host_rows']}, tail "
                  f"{cnt['engine.wave_host_tail']} (want >= {n_exact})")
-        log(f"8b pipelined {N_NODES} x {N_PODS} with the Policy: wall "
+        log(f"8b pipelined {N_NODES} x {P8B_PODS} with the Policy: wall "
             f"{rep['wall']:.3f} s, totals {json.dumps(tot)} [{card}]")
         log(f"8b counters {json.dumps(cnt)} (Policy fence requeues "
             f"{cnt['engine.policy_fence_requeues']}, host-check fence "
@@ -2017,7 +2064,7 @@ CHURN = {"rate": 2000.0, "duration_s": 4.0, "drain_s": 6.0,
 CHURN_NODES = 240
 PRIO_FILL_PER_NODE = 19           # 19 x 200m: 95% of a hollow node's 4,000m
 PRIO_STREAM = 10_000              # 5 s at 2,000/s
-PRIO_DAEMON_PODS = 500          # cut from 1,000 for the run's time (phase 12)
+PRIO_DAEMON_PODS = 250          # cut from 1,000 for the run's time (phases 12, 13)
 # bench.py measure_fastlane_mixed's defaults, n_nodes at the headline size
 FASTLANE = {"n_nodes": 5000, "rate": 2000.0, "fast_rate": 100.0,
             "duration_s": 3.0, "budget_ms": 250.0, "probe_pods": 64}
@@ -4404,6 +4451,452 @@ def front_door(mods, card):
     return total, err
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+P13_NODES = 5000
+P13_TEMPLATES = tuple(range(100))  # mixed_affinity's first hundred pods
+P13_REPLICAS = 100
+P13_PDS = 1000
+P13_JOB = 200
+P13_CHECK = (512, (0, 1, 15, 17, *range(22, 28)), 64)  # 13c
+P13_TRACE = (5000, 30000)           # 13b: bench.py run_once's shape
+P13_MAX_ROUNDS = 60                 # pump_until_stable's own cap
+REGION = "region-1"
+REGION_LABEL = "failure-domain.beta.kubernetes.io/region"
+ZONE_LABEL = "failure-domain.beta.kubernetes.io/zone"
+
+
+def controller_world(mods, n_nodes, templates, n_pd, device=None, spy=None):
+    """13a's path (13c's at 512 nodes): ApiServerLite with n_nodes hollow
+    nodes (zone and region labels); the ControllerManager over it on a
+    FakeCloud; n_pd GCE PDs created in the cloud across the zones, their
+    PersistentVolumes created through ApiServer over the same store (the
+    default chain plus PersistentVolumeLabel on the cloud), claims bound
+    by the PV binder; the card's Scheduler started; then one Deployment
+    of P13_REPLICAS per template (the mixed_affinity pods at `templates`),
+    one DaemonSet, one Job of P13_JOB and n_pd bare pods each mounting
+    one claim; pump, drain, pump (the attach); half the Deployments
+    scaled up by half; pump, drain, pump. Returns a dict of what the
+    checks and the log read."""
+    import contextlib
+    import dataclasses
+    import torch
+    (hollow, types, workloads, admission, adm_plugins, apiserver,
+     apiserver_lite, cloud_mod, controllers, Scheduler, COUNTERS,
+     kernels) = mods
+    Mi, Gi = 1 << 20, 1 << 30
+    api = apiserver_lite.ApiServerLite(max_log=1_000_000)
+    for node in hollow.hollow_nodes(n_nodes):
+        node.labels[REGION_LABEL] = REGION
+        api.create("Node", node)
+    cloud = cloud_mod.FakeCloud()
+    cm = controllers.ControllerManager(api, record_events=False,
+                                       cloud=cloud)
+    plugins = admission.default_plugins()
+    plugins.insert(-1, adm_plugins.PersistentVolumeLabel(cloud))
+    front = apiserver.ApiServer(
+        store=api, admission=admission.AdmissionChain(plugins, store=api))
+    t0 = time.perf_counter()
+    for i in range(n_pd):
+        cloud.create_disk(f"pd-{i:04d}", size_gb=10,
+                          zone=hollow.ZONES[i % len(hollow.ZONES)],
+                          region=REGION)
+        front.create("PersistentVolume", types.PersistentVolume(
+            f"pv-{i:04d}", capacity=10 * Gi, access_modes=["ReadWriteOnce"],
+            source=types.Volume(name=f"pd-{i:04d}",
+                                kind=types.VolumeKind.GCE_PD,
+                                volume_id=f"pd-{i:04d}")))
+        api.create("PersistentVolumeClaim", types.PersistentVolumeClaim(
+            f"claim-{i:04d}", "default", capacity=10 * Gi,
+            access_modes=["ReadWriteOnce"]))
+    rounds = {"claims": cm.pump_until_stable()}
+    walls = {"pv_and_claims": time.perf_counter() - t0}
+    sched = Scheduler(api, record_events=False, device=device)
+    sched.start()
+    # the pipelined drain binds through bind_pods_bulk; note when each
+    # batch returns
+    bind_at = []
+    bulk = api.bind_pods_bulk
+
+    def bind_pods_bulk(*a, **kw):
+        out = bulk(*a, **kw)
+        bind_at.append(time.perf_counter())
+        return out
+
+    api.bind_pods_bulk = bind_pods_bulk
+    profile = hollow.mixed_affinity_pods(100, namespace="default")
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    drain = (spy if spy is not None else contextlib.nullcontext())
+    sync()
+    kernels.reset_launch_counts()
+    t_first = time.perf_counter()
+    for i, t in enumerate(templates):
+        tpl = profile[t]
+        name = f"d{i:03d}"
+        api.create("Deployment", workloads.Deployment(
+            name=name, replicas=P13_REPLICAS,
+            template=dataclasses.replace(
+                tpl, name="", uid="", labels=dict(tpl.labels, deploy=name)),
+            selector=types.LabelSelector(match_labels={"deploy": name})))
+    api.create("DaemonSet", workloads.DaemonSet(
+        name="node-agent",
+        selector=types.LabelSelector(match_labels={"ds": "node-agent"}),
+        template=types.make_pod("", labels={"ds": "node-agent"}, cpu=100,
+                                memory=64 * Mi)))
+    api.create("Job", workloads.Job(
+        name="batch", completions=P13_JOB, parallelism=P13_JOB,
+        template=dataclasses.replace(
+            types.make_pod("", labels={"job": "batch"}, cpu=100,
+                           memory=128 * Mi), restart_policy="Never")))
+    for i in range(n_pd):
+        pod = types.make_pod(f"db-{i:04d}", cpu=100, memory=256 * Mi,
+                             labels={"app": "db"})
+        pod.volumes = [types.Volume(name="data", kind=types.VolumeKind.PVC,
+                                    volume_id=f"claim-{i:04d}")]
+        api.create("Pod", pod)
+    tot, created, drain_spans = [], [], []
+    for step in ("first", "scaled"):
+        if step == "scaled":
+            for i in range(0, len(templates), 2):
+                dep = api.get("Deployment", "default", f"d{i:03d}")
+                api.update("Deployment", dataclasses.replace(
+                    dep, replicas=dep.replicas + dep.replicas // 2))
+        n_before = len(api.list("Pod")[0])
+        t = time.perf_counter()
+        rounds[f"{step}_pump"] = cm.pump_until_stable()
+        walls[f"{step}_pump"] = time.perf_counter() - t
+        created.append(len(api.list("Pod")[0]) - n_before)
+        COUNTERS.reset()
+        t = time.perf_counter()
+        with drain:
+            tot.append(sched.run_until_drained())
+        sync()
+        walls[f"{step}_drain"] = time.perf_counter() - t
+        snap = COUNTERS.snapshot()
+        drain_spans.append({
+            **{k: round(1e3 * v, 1) for k, (_, v) in sorted(snap.items())
+               if k.startswith("pipeline.") and v > 0},
+            **{k: snap.get(k, (0, 0.0))[0] for k in PIPE_COUNTERS}})
+        if step == "first":
+            walls["first_create_to_last_bind"] = max(bind_at) - t_first
+        t = time.perf_counter()
+        rounds[f"{step}_attach"] = cm.pump_until_stable()
+        walls[f"{step}_attach"] = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    sched.engine.close()
+    return {"api": api, "cloud": cloud, "rounds": rounds, "walls": walls,
+            "tot": tot, "created": created, "launches": launches,
+            "drain_spans": drain_spans,
+            "templates": templates, "n_pd": n_pd}
+
+
+def check_controller_world(run, tag):
+    """13a's audits (also 13c's): phase 6's store audit with the
+    DaemonSet's pods counted, every pod bound and no bind error, each
+    Deployment owning one ReplicaSet of its size with every pod bound, one
+    DaemonSet pod per node, the Job's pods, each claim bound and its pod
+    in its PV's zone, no node past MaxPDVolumeCount or the cloud's disk
+    limit, and each disk attached to exactly the node of its pod. Returns
+    the number of pods."""
+    api, cloud = run["api"], run["cloud"]
+    pods = api.list("Pod")[0]
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    if max(run["rounds"].values()) >= P13_MAX_ROUNDS:
+        fail(f"{tag}: a pump stopped at its cap: {run['rounds']}")
+    _, unbound = audit_store(api, "mixed_affinity", len(pods))
+    if unbound or any(t["bind_errors"] for t in run["tot"]):
+        fail(f"{tag}: {unbound} pods unbound, totals {run['tot']}")
+    ds = [p for p in pods if p.owner_kind == "DaemonSet"]
+    if sum(t["bound"] for t in run["tot"]) != len(pods) - len(ds):
+        fail(f"{tag}: bound {[t['bound'] for t in run['tot']]} of "
+             f"{len(pods) - len(ds)} pods the scheduler placed")
+    n_dep = len(run["templates"])
+    want = {f"d{i:03d}": P13_REPLICAS + (P13_REPLICAS // 2
+                                         if i % 2 == 0 else 0)
+            for i in range(n_dep)}
+    rses = api.list("ReplicaSet")[0]
+    if sorted(rs.owner_name for rs in rses) != sorted(want):
+        fail(f"{tag}: ReplicaSets {sorted(rs.name for rs in rses)[:4]}..., "
+             f"want one per Deployment")
+    owned = {}
+    for p in pods:
+        if p.owner_kind == "ReplicaSet":
+            owned[p.owner_name] = owned.get(p.owner_name, 0) + 1
+    for rs in rses:
+        if rs.replicas != want[rs.owner_name] or \
+                owned.get(rs.name, 0) != rs.replicas:
+            fail(f"{tag}: {rs.name} replicas {rs.replicas}, owns "
+                 f"{owned.get(rs.name, 0)} pods, want {want[rs.owner_name]}")
+    if sorted(p.node_name for p in ds) != sorted(nodes):
+        fail(f"{tag}: {len(ds)} DaemonSet pods on "
+             f"{len({p.node_name for p in ds})} of {len(nodes)} nodes")
+    if sum(1 for p in pods if p.owner_kind == "Job") != P13_JOB:
+        fail(f"{tag}: the Job has not {P13_JOB} pods")
+    pvs = {pv.name: pv for pv in api.list("PersistentVolume")[0]}
+    claims = {c.name: c for c in api.list("PersistentVolumeClaim")[0]}
+    if len(claims) != run["n_pd"] or not all(
+            c.volume_name for c in claims.values()) or len(
+            {c.volume_name for c in claims.values()}) != len(claims):
+        fail(f"{tag}: claims not each bound to a PV of their own")
+    want_attach, per_node = {}, {}
+    for p in pods:
+        if not p.volumes:
+            continue
+        pv = pvs[claims[p.volumes[0].volume_id].volume_name]
+        zone = nodes[p.node_name].labels.get(ZONE_LABEL)
+        if pv.labels.get(ZONE_LABEL) != zone or not zone:
+            fail(f"{tag}: {p.name} on {p.node_name} ({zone}), its PV "
+                 f"{pv.name} in {pv.labels.get(ZONE_LABEL)}")
+        want_attach[pv.source.volume_id] = p.node_name
+        per_node[p.node_name] = per_node.get(p.node_name, 0) + 1
+    if cloud.max_disks_per_node != 16 or \
+            max(per_node.values()) > cloud.max_disks_per_node:
+        fail(f"{tag}: {max(per_node.values())} PDs on one node, limit "
+             f"{cloud.max_disks_per_node}")
+    if cloud.attachments != want_attach:
+        bad = sorted(set(cloud.attachments.items())
+                     ^ set(want_attach.items()))[:3]
+        fail(f"{tag}: attachments != the PD pods' nodes ({len(bad)}+ "
+             f"differ: {bad})")
+    return len(pods)
+
+
+def controller_outcome(run):
+    """What 13c holds the card against the CPU in."""
+    api = run["api"]
+    return (placements(api),
+            sorted((rs.name, rs.owner_name, rs.replicas)
+                   for rs in api.list("ReplicaSet")[0]),
+            sorted((c.name, c.volume_name)
+                   for c in api.list("PersistentVolumeClaim")[0]),
+            sorted(run["cloud"].attachments.items()))
+
+
+def interval_union(spans):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_window_share(trace):
+    """The union of the trace's device-eval windows over the recorded
+    wall (first event to last end), both from the trace itself."""
+    evs = [e for e in trace["traceEvents"] if e.get("ph") in ("X", "i")]
+    t0 = min(e["ts"] for e in evs)
+    t1 = max(e["ts"] + e.get("dur", 0.0) for e in evs)
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+           if e.get("ph") == "X" and e["name"].startswith("device-eval w")]
+    return interval_union(dev) / (t1 - t0), (t1 - t0) / 1e6
+
+
+def flight_recorder_trace(mods, card, tmp):
+    """13b: the CLI's recorded drain on the card, then a second recorded
+    drain of the same build under torch.profiler. Returns (launches,
+    max abs err per kernel, the shares)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    (cli, rec_mod, perfetto, hollow, apiserver_lite, Scheduler, kernels,
+     COUNTERS) = mods
+    n_nodes, n_pods = P13_TRACE
+    out = os.path.join(tmp, "trace.json")
+    raw = os.path.join(tmp, "events.json")
+    at_enable = []
+
+    class Recorder:
+        """The ring the CLI arms, noting engine.wave_dispatch when it
+        does (the warm drain before it is not the recorded one)."""
+
+        def __init__(self, real):
+            self.real = real
+
+        def __getattr__(self, name):
+            return getattr(self.real, name)
+
+        def enable(self):
+            at_enable.append(COUNTERS.snapshot().get(
+                "engine.wave_dispatch", (0, 0))[0])
+            self.real.enable()
+
+    real = rec_mod.RECORDER
+    rec_mod.RECORDER = Recorder(real)
+    spy = OperandSpy(kernels)
+    t = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with spy:
+            rc = cli.main(["--trace", out, "--events", raw,
+                           "--nodes", str(n_nodes), "--pods", str(n_pods),
+                           "--profile", "mixed_affinity"])
+        torch.cuda.synchronize()
+    finally:
+        rec_mod.RECORDER = real
+    cli_s = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0 or len(at_enable) != 1:
+        fail(f"13b: the CLI returned {rc}, armed the ring "
+             f"{len(at_enable)} times")
+    waves = COUNTERS.snapshot().get("engine.wave_dispatch",
+                                    (0, 0))[0] - at_enable[0]
+    with open(out) as f:
+        trace = json.load(f)
+    with open(raw) as f:
+        events = json.load(f)
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    per = {p: sum(1 for e in spans if e["name"].startswith(p))
+           for p in ("dispatch w", "device-eval w", "bind-flush w")}
+    if waves <= 0 or set(per.values()) != {waves}:
+        fail(f"13b: {waves} waves dispatched, trace spans {per}")
+    if any(e["dur"] <= 0 for e in spans):
+        fail("13b: a span of zero or negative length")
+    hidden = perfetto.overlap_seconds(events)
+    if hidden < 0:
+        fail(f"13b: overlap_seconds {hidden}")
+    share, wall = device_window_share(trace)
+    err = spy.check("13b recorded drains")
+    if launches["capacity_fit"] == 0 or launches["incidence_matmul"] == 0:
+        fail(f"13b: a kernel never launched in the CLI's drains "
+             f"({launches})")
+    log(f"13b flight recorder: python -m kubernetes_tpu_torch.observability "
+        f"--trace at {n_nodes} x {n_pods} mixed_affinity on the card in "
+        f"{cli_s:.1f} s (warm drain + recorded drain); {waves} waves, "
+        f"{len(trace['traceEvents'])} trace events, {per}; recorded wall "
+        f"{wall:.3f} s; host work hidden under device-eval windows "
+        f"{hidden * 1e3:.1f} ms; device-window share {share:.4f} (the union "
+        f"of the waves' asynchronous windows over the recorded wall: an "
+        f"upper bound on the card's busy share); launches {launches} "
+        f"[{card}]")
+    # the same build, a second recorded drain under the profiler
+    api = apiserver_lite.ApiServerLite(max_log=max(200_000,
+                                                   3 * (n_nodes + n_pods)))
+    hollow.load_cluster(api, hollow.hollow_nodes(n_nodes),
+                        hollow.PROFILES["mixed_affinity"](n_pods))
+    sched = Scheduler(api, record_events=False)
+    sched.start()
+    real.clear()
+    real.enable()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        tot = sched.run_until_drained()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t
+    real.disable()
+    ring = real.snapshot()
+    real.clear()
+    sched.engine.close()
+    if tot["bound"] != n_pods:
+        fail(f"13b: the profiled drain bound {tot['bound']} of {n_pods}")
+    prof_path = os.path.join(tmp, "profile.json")
+    prof.export_chrome_trace(prof_path)
+    with open(prof_path) as f:
+        dev = [(e["ts"], e["ts"] + e["dur"])
+               for e in json.load(f).get("traceEvents", [])
+               if e.get("ph") == "X" and e.get("cat") in (
+                   "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        fail("13b: the profiler's trace holds no kernel or copy")
+    busy = interval_union(dev) / 1e6 / drain_s
+    ring_share, ring_wall = device_window_share(
+        perfetto.build_chrome_trace(ring))
+    log(f"13b profiled drain (the same build, {n_nodes} x {n_pods} "
+        f"mixed_affinity, recorder on): wall {drain_s:.3f} s, "
+        f"{len(dev)} kernels and copies, card busy share {busy:.4f} "
+        f"(union of kernel and memcpy intervals over the drain's wall), "
+        f"idle share {1 - busy:.4f}; device-window share of the same "
+        f"drain {ring_share:.4f} over its recorded wall {ring_wall:.3f} s "
+        f"[{card}]")
+    shares = {"device_window_share": share, "busy_share": busy,
+              "idle_share": 1 - busy, "profiled_window_share": ring_share}
+    return launches, err, shares
+
+
+def controllers_on_the_card(mods, card):
+    """Phase 13: the controller manager, the cloud and volumes in front of
+    the card's scheduler (13a), the flight recorder's trace of a drain
+    through the port's own entry point (13b), card == CPU (13c). Returns
+    (launches of 13a and 13b, max abs err per kernel)."""
+    import tempfile
+    (world_mods, trace_mods) = mods
+    kernels = world_mods[-1]
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in kernels.LAUNCHES}
+    err = {k: 0 for k in kernels.LAUNCHES}
+    # 13a
+    spy = OperandSpy(kernels)
+    run = controller_world(world_mods, P13_NODES, P13_TEMPLATES, P13_PDS,
+                           spy=spy)
+    n_pods = check_controller_world(run, "13a")
+    launches = run["launches"]
+    if launches["capacity_fit"] == 0 or launches["incidence_matmul"] == 0:
+        fail(f"13a: a kernel never launched behind the controllers "
+             f"({launches})")
+    for k, v in spy.check("13a controllers").items():
+        err[k] = max(err[k], v)
+    for k, v in launches.items():
+        total[k] += v
+    w, r = run["walls"], run["rounds"]
+    log(f"13a controllers: {P13_NODES} nodes, {len(P13_TEMPLATES)} "
+        f"Deployments x {P13_REPLICAS} (half then scaled by half), a "
+        f"DaemonSet, a Job of {P13_JOB}, {P13_PDS} PD pods; {n_pods} pods. "
+        f"PVs through ApiServer (PersistentVolumeLabel on the FakeCloud) "
+        f"and claims bound in {w['pv_and_claims']:.3f} s "
+        f"({r['claims']} rounds); controller convergence {r['first_pump']} "
+        f"rounds in {w['first_pump']:.3f} s ({run['created'][0]} pods "
+        f"created, {run['created'][0] / w['first_pump']:.0f} pods/s), "
+        f"drain {w['first_drain']:.3f} s, first Deployment create to last "
+        f"bind {w['first_create_to_last_bind']:.3f} s, attach "
+        f"{w['first_attach']:.3f} s ({r['first_attach']} rounds, "
+        f"{len(run['cloud'].attachments)} disks); scaled: "
+        f"{r['scaled_pump']} rounds in {w['scaled_pump']:.3f} s "
+        f"({run['created'][1]} pods, "
+        f"{run['created'][1] / w['scaled_pump']:.0f} pods/s), drain "
+        f"{w['scaled_drain']:.3f} s, attach {w['scaled_attach']:.3f} s; "
+        f"totals {json.dumps(run['tot'])}; drain spans (ms) and "
+        f"counters {json.dumps(run['drain_spans'])}; launches {launches}, "
+        f"by shape (capacity (mask or wave, C, N, R), incidence (M, N, L)) "
+        f"{spy.launches_by_shape()} [{card}]")
+    del run
+    # 13b
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        got, got_err, _ = flight_recorder_trace(trace_mods, card, tmp)
+    for k, v in got.items():
+        total[k] += v
+    for k, v in got_err.items():
+        err[k] = max(err[k], v)
+    # 13c: card == CPU
+    n_nodes, templates, n_pd = P13_CHECK
+    runs = {}
+    for tag, dev in (("card", None), ("CPU", "cpu")):
+        r = controller_world(world_mods, n_nodes, templates, n_pd,
+                             device=dev)
+        check_controller_world(r, f"13c {tag}")
+        runs[tag] = controller_outcome(r)
+        log(f"13c controllers {n_nodes} nodes x {len(templates)} "
+            f"Deployments + {n_pd} PD pods on the {tag}: drains "
+            f"{r['walls']['first_drain']:.3f} / "
+            f"{r['walls']['scaled_drain']:.3f} s")
+    names = ("placements", "ReplicaSets", "PV bindings", "attachments")
+    for name, a, b in zip(names, runs["card"], runs["CPU"]):
+        if a != b:
+            fail(f"13c: card != CPU in {name}")
+    log(f"13c: card == CPU in {len(runs['CPU'][0])} placements, "
+        f"{len(runs['CPU'][1])} ReplicaSets, {len(runs['CPU'][2])} PV "
+        f"bindings and {len(runs['CPU'][3])} attachments")
+    log(f"phase 13 launches {total}; phase 13 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4447,6 +4940,12 @@ def main() -> int:
         from kubernetes_tpu_torch.server import (apiserver, replication,
                                                  rest_http)
         from kubernetes_tpu_torch.testing import chaosmonkey
+        from kubernetes_tpu_torch import cloud as cloud_mod
+        from kubernetes_tpu_torch import controllers
+        from kubernetes_tpu_torch.admission import plugins as adm_plugins
+        from kubernetes_tpu_torch.observability import __main__ as obs_cli
+        from kubernetes_tpu_torch.observability import perfetto
+        from kubernetes_tpu_torch.observability import recorder as rec_mod
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -4547,7 +5046,17 @@ def main() -> int:
     for k, v in err_p12.items():
         max_err[k] = max(max_err[k], v)
 
-    # 13. summary
+    # 13. the controller manager, the cloud and volumes; the trace
+    launches_p13, err_p13 = controllers_on_the_card(
+        ((hollow, types, workloads, admission, adm_plugins, apiserver,
+          apiserver_lite, cloud_mod, controllers, Scheduler, COUNTERS,
+          kernels),
+         (obs_cli, rec_mod, perfetto, hollow, apiserver_lite, Scheduler,
+          kernels, COUNTERS)), card)
+    for k, v in err_p13.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 14. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -4561,7 +5070,7 @@ def main() -> int:
                          + launches_pipe[name] + launches_ext[name]
                          + launches_p8[name] + launches_p9[name]
                          + launches_p10[name] + launches_p11[name]
-                         + launches_p12[name]),
+                         + launches_p12[name] + launches_p13[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4576,7 +5085,8 @@ def main() -> int:
         f"pipelined drains {launches_pipe}, extender {launches_ext}, "
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
-        f"mesh {launches_p11}, front door {launches_p12}")
+        f"mesh {launches_p11}, front door {launches_p12}, controllers "
+        f"and the trace {launches_p13}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,7 @@
 reference's. The bodies of tests/test_admission_sweep.py,
 tests/test_admission_webhook.py and tests/test_security.py run on both
 packages (the `k` fixture); then every default plugin, PodPreset, PSP and
-PersistentVolumeLabel (with one duck-typed cloud stub) get the same
+PersistentVolumeLabel (on each package's FakeCloud) get the same
 requests in both packages and must give the same admitted object (wire
 JSON bytes) or the same Rejected message; rollback restores quota usage
 in both; a webhook backend receives byte-equal AdmissionReviews from
@@ -28,6 +28,7 @@ MODULES = {
     "oracle_ext": "ops.oracle_ext", "apiserver": "server.apiserver",
     "lite": "server.apiserver_lite", "sc": "security.securitycontext",
     "psp": "security.psp", "quota": "quota", "features": "utils.features",
+    "cloud": "cloud",
 }
 
 PKGS = {REF: Pkg(REF, MODULES), PORT: Pkg(PORT, MODULES)}
@@ -36,20 +37,6 @@ PKGS = {REF: Pkg(REF, MODULES), PORT: Pkg(PORT, MODULES)}
 @pytest.fixture(params=[REF, PORT], ids=["ref", "port"])
 def k(request):
     return PKGS[request.param]
-
-
-class StubCloud:
-    """The cloud surface PersistentVolumeLabel reads (disk_zone), given
-    alike to both packages."""
-
-    def __init__(self):
-        self.zones = {}
-
-    def create_disk(self, volume_id, zone="zone-a", region="region-1"):
-        self.zones[volume_id] = (zone, region)
-
-    def disk_zone(self, volume_id):
-        return self.zones.get(volume_id)
 
 
 class WebhookBackend:
@@ -200,7 +187,7 @@ def test_owner_references_need_delete_permission(k):
 
 
 def test_persistent_volume_label_stamps_cloud_zone(k):
-    cloud = StubCloud()
+    cloud = k.FakeCloud()
     cloud.create_disk("disk-1", zone="zone-b", region="region-2")
     api = mk_server(k, k.PersistentVolumeLabel(cloud))
     pv = k.PersistentVolume(
@@ -768,15 +755,15 @@ def _optin_world(k, cloud):
 
 def test_opt_in_plugins_admit_and_reject_alike():
     """PodPreset, AlwaysPullImages, the hard anti-affinity limit, PSP and
-    PersistentVolumeLabel (one cloud stub for both) on seeded requests:
-    the same admitted objects and refusals."""
-    cloud = StubCloud()
-    for i in range(4):
-        cloud.create_disk(f"disk-{i}", zone=f"zone-{i % 2}",
-                          region=f"region-{i % 3}")
+    PersistentVolumeLabel (each package's FakeCloud, holding the same
+    disks) on seeded requests: the same admitted objects and refusals."""
     results = {}
     for root in (REF, PORT):
         k = PKGS[root]
+        cloud = k.FakeCloud()
+        for i in range(4):
+            cloud.create_disk(f"disk-{i}", zone=f"zone-{i % 2}",
+                              region=f"region-{i % 3}")
         chain = _optin_world(k, cloud)
         rng = random.Random(5)
         got = []

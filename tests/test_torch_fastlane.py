@@ -13,6 +13,8 @@ the CPU, exactly.
   fast-only window, the contended last slot (exactly one bind), the
   capacity-fence resample and fallback, the doomed-node note, the device
   route when no wave is in flight, and the queue's tiering.
+- The trend gate's fast-lane headlines, its box-shape annotation and its
+  CPU-count fallback, through both packages' ``observability/trend``.
 Placements and outcome counters must be equal. Which twin served an
 eval depends on whether the port's wave job had finished, so the
 device/host dispatch split is compared only where the test fixes it."""
@@ -29,6 +31,7 @@ from kubernetes_tpu.api import types as jt
 from kubernetes_tpu.engine import fastlane as jfl
 from kubernetes_tpu.engine import scheduler as jsched
 from kubernetes_tpu.models import hollow as jh
+from kubernetes_tpu.observability import trend as jtrend
 from kubernetes_tpu.ops import fastlane as jops
 from kubernetes_tpu.server import apiserver_lite as japi
 from kubernetes_tpu.state import snapshot as jsnap
@@ -38,6 +41,7 @@ from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.engine import fastlane as tfl
 from kubernetes_tpu_torch.engine import scheduler as tsched
 from kubernetes_tpu_torch.models import hollow as th
+from kubernetes_tpu_torch.observability import trend as ttrend
 from kubernetes_tpu_torch.ops import fastlane as tops
 from kubernetes_tpu_torch.server import apiserver_lite as tapi
 from kubernetes_tpu_torch.state import snapshot as tsnap
@@ -454,3 +458,65 @@ def test_bulk_aging_guard_untouched_by_fast_tier():
         _close(s)
         return popped, fast
     _both(run)
+
+
+# ------------------------------------------------------------ trend gate
+
+TRENDS = pytest.mark.parametrize("trend", [jtrend, ttrend],
+                                 ids=["ref", "port"])
+
+
+def _write_round(tmp_path, r, **metrics):
+    import json
+    doc = {"n": 1, "cmd": "python bench.py", "rc": 0, "parsed": metrics}
+    (tmp_path / f"BENCH_r{r:02d}.json").write_text(json.dumps(doc))
+
+
+@TRENDS
+def test_trend_learns_fastlane_headlines(tmp_path, trend):
+    """The trend gate reads `fastlane_p99_ms` (down) and
+    `mixed_bulk_sustained` (up) from r19 on: absent history tolerated,
+    a past-band move in the bad direction flags."""
+    assert ("fastlane_p99_ms", "fastlane p99 ms", "down") \
+        in trend.HEADLINE_METRICS
+    assert ("mixed_bulk_sustained", "mixed bulk frac", "up") \
+        in trend.HEADLINE_METRICS
+    _write_round(tmp_path, 18, value=30000.0)  # before r19: no fast keys
+    _write_round(tmp_path, 19, value=30000.0, fastlane_p99_ms=7.5,
+                 mixed_bulk_sustained=1.0)
+    assert trend.find_regressions(trend.load_rounds(str(tmp_path))) == []
+    _write_round(tmp_path, 20, value=30000.0, fastlane_p99_ms=25.0,
+                 mixed_bulk_sustained=0.5)  # both past the band, bad way
+    regs = trend.find_regressions(trend.load_rounds(str(tmp_path)))
+    assert sorted(g["metric"] for g in regs) == \
+        ["fastlane_p99_ms", "mixed_bulk_sustained"]
+
+
+@TRENDS
+def test_trend_annotates_box_shape_change(tmp_path, capsys, trend):
+    """A flagged delta whose two rounds ran on DIFFERENT cpu counts
+    carries `box_change` and is reported but NOT gated (exit 0); the
+    same delta on a same-shape box gates."""
+    _write_round(tmp_path, 18, churn_vs_quiet=0.85, cpus=2)
+    _write_round(tmp_path, 19, churn_vs_quiet=0.45, cpus=1)  # 2->1 core
+    regs = trend.find_regressions(trend.load_rounds(str(tmp_path)))
+    assert [g["metric"] for g in regs] == ["churn_vs_quiet"]
+    assert regs[0]["box_change"] == "2 -> 1 cpus"
+    assert trend.main(["--root", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "box change: 2 -> 1 cpus" in out and "not gated" in out
+    # same drop, same box shape: a real regression, exit 1
+    _write_round(tmp_path, 20, churn_vs_quiet=0.85, cpus=1)
+    _write_round(tmp_path, 21, churn_vs_quiet=0.45, cpus=1)
+    regs = trend.find_regressions(trend.load_rounds(str(tmp_path)))
+    assert regs and "box_change" not in regs[0]
+    assert trend.main(["--root", str(tmp_path)]) == 1
+
+
+@TRENDS
+def test_round_cpus_reads_r18_multiproc_fallback(trend):
+    """Artifacts before r19 disclosed the box only inside the multiproc
+    sub-dict; `round_cpus` must still see it."""
+    assert trend.round_cpus({"cpus": 2}) == 2
+    assert trend.round_cpus({"multiproc": {"cpus": 1}}) == 1
+    assert trend.round_cpus({"value": 1.0}) is None

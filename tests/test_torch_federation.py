@@ -14,7 +14,9 @@
   key, unroutable pods backlog and are admitted later — on ``LocalCell``s
   over the port's ``CellService`` with ``Scheduler(device="cpu")`` —
   and the same tier over the binary wire (``CellAgent`` + ``WireCell``)
-  drains a mixed stream exactly once.
+  drains a mixed stream exactly once;
+- the trend gate knows the federation headlines and reports a
+  single-core churn drop without gating it, in both packages.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import kubernetes_tpu.api.types as jt
 import kubernetes_tpu.federation.aggregate as jagg
 import kubernetes_tpu.federation.router as jrouter
 import kubernetes_tpu.models.hollow as jh
+import kubernetes_tpu.observability.trend as jtrend
 import kubernetes_tpu.ops.federation as jfed
 import kubernetes_tpu.server.apiserver_lite as japi
 import kubernetes_tpu.testing.churn as jchurn
@@ -35,6 +38,7 @@ import kubernetes_tpu_torch.api.types as tt
 import kubernetes_tpu_torch.federation.aggregate as tagg
 import kubernetes_tpu_torch.federation.router as trouter
 import kubernetes_tpu_torch.models.hollow as th
+import kubernetes_tpu_torch.observability.trend as ttrend
 import kubernetes_tpu_torch.ops.federation as tfed
 import kubernetes_tpu_torch.server.apiserver_lite as tapi
 import kubernetes_tpu_torch.testing.churn as tchurn
@@ -652,3 +656,45 @@ def test_wire_cells_drain_a_mixed_stream_exactly_once():
             owner[p.key()] = a.name
     assert len(owner) == len(pods) + len(burst)
     assert all(isinstance(s, dict) for s in stats)
+
+
+# ------------------------------------------------------------ trend gate
+
+TRENDS = pytest.mark.parametrize("trend", [jtrend, ttrend],
+                                 ids=["ref", "port"])
+
+
+@TRENDS
+def test_trend_knows_federation_headlines(trend):
+    keys = {k for k, _l, _d in trend.HEADLINE_METRICS}
+    assert {"federation_agg_nodes", "federation_router_p99_ms",
+            "federation_spillover_bound"} <= keys
+
+
+@TRENDS
+def test_trend_single_core_churn_regression_not_gated(trend):
+    """A churn_vs_quiet drop on a 1-cpu box against a round with no
+    recorded cpus is annotated single_core_band: reported, never
+    fatal."""
+    find_regressions = trend.find_regressions
+    rounds = [(11, {"churn_vs_quiet": 0.664}),
+              (21, {"churn_vs_quiet": 0.386, "cpus": 1,
+                    "churn_attribution": {"cpus": 1, "bar": 0.35}})]
+    regs = find_regressions(rounds)
+    assert len(regs) == 1
+    assert "single_core_band" in regs[0]
+    # WITHOUT the disclosed attribution the same drop still gates:
+    # leniency must be earned by evidence in the artifact
+    bare = find_regressions([(11, {"churn_vs_quiet": 0.664}),
+                             (21, {"churn_vs_quiet": 0.386, "cpus": 1})])
+    assert bare and "single_core_band" not in bare[0]
+    # the main() fatal filter drops annotated regressions
+    fatal = [g for g in regs
+             if "box_change" not in g and "single_core_band" not in g]
+    assert fatal == []
+    # a genuinely same-shape 2-core drop still gates
+    rounds2 = [(11, {"churn_vs_quiet": 0.664, "cpus": 2}),
+               (21, {"churn_vs_quiet": 0.386, "cpus": 2})]
+    regs2 = find_regressions(rounds2)
+    assert regs2 and "single_core_band" not in regs2[0] \
+        and "box_change" not in regs2[0]

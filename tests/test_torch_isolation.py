@@ -1,12 +1,16 @@
 """The port stands alone: no module of kubernetes_tpu_torch, and neither
 chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
 package imports with both blocked, its mesh, sanitizer and front door
-(admission, auth, quota, the full apiserver, REST, WAL shipping) import
-and run so; a spawned cell process or fleet worker
-of the port never imports either; and its entry points refuse to run on a
-box without a card unless the caller names the CPU."""
+(admission, auth, quota, the full apiserver, REST, WAL shipping), its
+trace exporter, trend reader and flight-recorder CLI, and its cloud
+provider, volumes and controllers import and run so; a spawned cell
+process or fleet worker of the port never imports either; and its entry
+points refuse to run on a box without a card unless the caller names the
+CPU (the CLI's --trend needs no card)."""
 
 import ast
+import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -140,6 +144,111 @@ def test_front_door_is_scanned_and_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+CONTROL_PLANE = ("observability/perfetto.py", "observability/trend.py",
+                 "observability/__main__.py", "cloud/__init__.py",
+                 "cloud/provider.py", "volumes/__init__.py",
+                 "volumes/plugins.py", "volumes/drivers.py",
+                 "volumes/manager.py", "controllers/__init__.py",
+                 "controllers/base.py", "controllers/replicaset.py",
+                 "controllers/deployment.py", "controllers/job.py",
+                 "controllers/daemonset.py", "controllers/statefulset.py",
+                 "controllers/endpoint.py", "controllers/namespace.py",
+                 "controllers/gc.py", "controllers/nodelifecycle.py",
+                 "controllers/quota_sa.py", "controllers/autoscale.py",
+                 "controllers/certificates.py", "controllers/cloudctrl.py",
+                 "controllers/manager.py")
+
+
+def test_control_plane_is_scanned_and_runs_with_jax_blocked():
+    """The trace exporter, the trend reader, the CLI, the cloud, volumes
+    and controllers are in the scan above, and they import and run in a
+    process where jax and the reference package cannot be imported: a
+    ReplicaSet and a claim pumped to stability, a disk attached through
+    the attach/detach controller, a ring rendered, the trend read."""
+    for rel in CONTROL_PLANE:
+        assert PKG / rel in SCANNED, rel
+    code = (
+        "import sys, io, contextlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        "import kubernetes_tpu_torch.volumes\n"
+        "from kubernetes_tpu_torch.api.types import (LabelSelector,\n"
+        "    PersistentVolume, PersistentVolumeClaim, Volume, VolumeKind,\n"
+        "    make_node, make_pod)\n"
+        "from kubernetes_tpu_torch.api.workloads import ReplicaSet\n"
+        "from kubernetes_tpu_torch.cloud import FakeCloud\n"
+        "from kubernetes_tpu_torch.controllers import ControllerManager\n"
+        "from kubernetes_tpu_torch.observability import perfetto, trend\n"
+        "from kubernetes_tpu_torch.observability import __main__ as cli\n"
+        "from kubernetes_tpu_torch.server.apiserver_lite import "
+        "ApiServerLite\n"
+        "api = ApiServerLite()\n"
+        "api.create('Node', make_node('n0'))\n"
+        "cloud = FakeCloud()\n"
+        "cloud.create_disk('pd-0')\n"
+        "cm = ControllerManager(api, record_events=False, cloud=cloud)\n"
+        "tpl = make_pod('', labels={'app': 'a'}, cpu=10)\n"
+        "api.create('ReplicaSet', ReplicaSet(name='a', replicas=2,\n"
+        "    selector=LabelSelector(match_labels={'app': 'a'}),\n"
+        "    template=tpl))\n"
+        "api.create('PersistentVolume', PersistentVolume('pv-0',\n"
+        "    capacity=1 << 30, source=Volume(name='pv-0',\n"
+        "    kind=VolumeKind.GCE_PD, volume_id='pd-0')))\n"
+        "api.create('PersistentVolumeClaim', PersistentVolumeClaim(\n"
+        "    'c', capacity=1 << 20))\n"
+        "p = make_pod('db', cpu=10, node_name='n0')\n"
+        "p.volumes = [Volume(name='d', kind=VolumeKind.PVC,\n"
+        "                    volume_id='c')]\n"
+        "api.create('Pod', p)\n"
+        "cm.pump_until_stable()\n"
+        "assert len(api.list('Pod')[0]) == 3\n"
+        "assert cloud.disks_attached('n0') == ['pd-0']\n"
+        "t = perfetto.build_chrome_trace([{'kind': 'dispatch', 'wave': 0,\n"
+        "    't': 1.0, 'dur': 0.1, 'a': 1, 'b': 0}])\n"
+        "assert t['traceEvents']\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert trend.main([]) in (0, 1)\n"
+        "    assert cli.main(['--trend']) in (0, 1)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'kubernetes_tpu')\n"
+        "             and sys.modules[m] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "kubernetes_tpu_torch.observability", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_trace_refuses_without_a_card_unless_asked_for_the_cpu(
+        tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: --trace runs on it")
+    out = tmp_path / "trace.json"
+    small = ("--nodes", "8", "--pods", "24", "--trace", str(out))
+    refused = _cli(*small)
+    assert refused.returncode != 0
+    assert "CUDA" in refused.stderr and not out.exists()
+    done = _cli(*small, "--device", "cpu")
+    assert done.returncode == 0, done.stderr
+    assert any(e["name"].startswith("device-eval")
+               for e in json.loads(out.read_text())["traceEvents"])
+
+
+def test_cli_trend_needs_no_card():
+    got = subprocess.run(
+        [sys.executable, "-m", "kubernetes_tpu_torch.observability",
+         "--trend"], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert got.returncode in (0, 1), got.stderr
+    assert "band" in got.stdout
 
 
 def test_entry_points_default_to_the_card():

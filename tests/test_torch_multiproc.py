@@ -6,15 +6,16 @@ sparing a same-node replay, the fence-conflict counters partitioning
 exactly on all three transports, the typed conflict landing in the flight
 recorder's ring, the reader-task accounting at ``stop()``, and spawned
 ``run_process_fleet(..., device="cpu")`` workers over an overlapped pool
-binding every pod exactly once, also under the lock checker. The
-reference's perfetto and trend tests are left out: the port has no
-``observability/{perfetto,trend}.py`` yet."""
+binding every pod exactly once, also under the lock checker; the
+perfetto exporter's per-process lanes and typed wire-conflict instants,
+and the trend gate on the fleet's headline."""
 
 from __future__ import annotations
 
 import json
 import time
 
+import pytest
 
 from kubernetes_tpu_torch.api.types import make_pod
 from kubernetes_tpu_torch.client.binarywire import BinaryWireClient
@@ -247,6 +248,76 @@ def test_wire_fence_conflict_lands_in_ring_as_typed_instant():
         RECORDER.clear()
         cli.close()
         srv.stop()
+
+
+def test_perfetto_renders_wire_conflicts_and_process_lanes():
+    """One lane per scheduler process; fence-conflict instants typed by
+    reason name on the fence lane AND the process lane, all aligned to
+    the ring's time base."""
+    from kubernetes_tpu_torch.observability.perfetto import (
+        TID_PROC_BASE, add_process_lanes, build_chrome_trace)
+
+    t0 = 1000.0
+    ring = [
+        {"kind": "dispatch", "wave": 1, "t": t0, "dur": 0.001,
+         "a": 4, "b": 0},
+        {"kind": "fence_requeue", "wave": -1, "t": t0 + 0.002,
+         "dur": 0.0, "a": 1, "b": pt.REASON_DOUBLE_CLAIM},
+        {"kind": "fence_requeue", "wave": 2, "t": t0 + 0.003,
+         "dur": 0.0, "a": 2, "b": 1},
+    ]
+    trace = build_chrome_trace(ring)
+    names = [e["name"] for e in trace["traceEvents"]]
+    assert "fence-conflict:double_claim" in names  # typed wire instant
+    assert "fence-requeue w2" in names  # wave-owned shape untouched
+    workers = [
+        {"worker": 0, "counts": {"binds": 2, "conflicts": 0},
+         "events": [
+             {"kind": "relist", "t": t0 + 0.001, "dur": 0.0005, "n": 0},
+             {"kind": "bind", "t": t0 + 0.004, "dur": 0.001,
+              "pod": "default/a", "node": "n0", "attempt": 0}]},
+        {"worker": 1, "counts": {"binds": 1, "conflicts": 1},
+         "events": [
+             {"kind": "conflict", "t": t0 + 0.002, "dur": 0.0004,
+              "pod": "default/a", "reason": "double_claim",
+              "owner": "n0"}]},
+    ]
+    add_process_lanes(trace, workers, t_base=t0)
+    evs = trace["traceEvents"]
+    lane_meta = [e for e in evs if e["ph"] == "M"
+                 and e.get("tid", 0) >= TID_PROC_BASE]
+    assert len(lane_meta) == 2  # one lane per process
+    assert "sched-proc 0" in lane_meta[0]["args"]["name"]
+    w1_conflicts = [e for e in evs if e["ph"] == "i"
+                    and e.get("tid") == TID_PROC_BASE + 1]
+    assert w1_conflicts[0]["name"] == "fence-conflict:double_claim"
+    # ring alignment: the worker instant sits at its monotonic offset
+    # from the ring's t_base (2ms), comparable with the fence lane's
+    assert w1_conflicts[0]["ts"] == pytest.approx(2000.0, abs=0.2)
+    binds = [e for e in evs if e["ph"] == "X"
+             and e.get("tid") == TID_PROC_BASE and e["name"] == "bind"]
+    assert binds and binds[0]["dur"] == pytest.approx(1000.0, abs=0.2)
+
+
+def test_trend_learns_multiproc_headline(tmp_path):
+    """The trend gate reads the multiproc_N aggregate from r18 on:
+    absent history tolerated, a past-band drop flags."""
+    from kubernetes_tpu_torch.observability import trend
+
+    assert ("multiproc_pods_s", "multiproc agg/s", "up") \
+        in trend.HEADLINE_METRICS
+
+    def w(r, **metrics):
+        doc = {"n": 1, "cmd": "python bench.py", "rc": 0,
+               "parsed": metrics}
+        (tmp_path / f"BENCH_r{r:02d}.json").write_text(json.dumps(doc))
+
+    w(17, value=30000.0)  # a round before r18: no multiproc key
+    w(18, value=30000.0, multiproc_pods_s=50.0)
+    assert trend.find_regressions(trend.load_rounds(str(tmp_path))) == []
+    w(19, value=30000.0, multiproc_pods_s=20.0)  # -60%: regression
+    regs = trend.find_regressions(trend.load_rounds(str(tmp_path)))
+    assert [g["metric"] for g in regs] == ["multiproc_pods_s"]
 
 
 # ------------------------------------------------------- reader-task leak

@@ -14,12 +14,15 @@ on the CPU, exactly.
 - The wave path (tests/test_preempt_wave.py): wave plans == classic
   plans (fuzz), affinity residents, the atomic evict+bind with injected
   failures and landed timeouts, the disruption budget's window and band
-  floor, and preemption riding the stream without a flush.
+  floor, preemption riding the stream without a flush, and its
+  counters and flight-recorder lane (the perfetto export, the telemetry
+  registry and VerdictService's debug snapshot).
 Each end-to-end case runs through both packages; placements, victims and
 counters must be equal."""
 
 from __future__ import annotations
 
+import importlib
 import random
 
 import numpy as np
@@ -801,6 +804,57 @@ def test_preemption_rides_wave_path_without_flush(pod_priority):
         loop.close()
         _close(s)
         return _placements(api), total, c
+    _both(run)
+
+
+def test_preempt_counters_and_recorder_lane(pod_priority):
+    """The propose / commit / victim-requeue events land on the ring, the
+    perfetto export draws them on the preempt lane, and the counters
+    reach the unified registry and VerdictService's debug snapshot."""
+    def run(side):
+        root = side["t"].__name__.split(".")[0]
+        mod = {m: importlib.import_module(f"{root}.{p}") for m, p in (
+            ("rec", "observability.recorder"),
+            ("perfetto", "observability.perfetto"),
+            ("registry", "observability.registry"),
+            ("embedded", "server.embedded"),
+            ("extender", "server.extender"))}
+        recorder = mod["rec"].RECORDER
+        api, fapi, s = _full_cluster(side)
+        loop = s.stream(budget_s=30.0, min_quantum=16, max_quantum=16)
+        recorder.clear()
+        recorder.enable()
+        try:
+            api.create("Pod", prio_pod(side, "hi", 1000))
+            total = _steps(loop, 6, stop=lambda t: t.get("preemptions", 0))
+        finally:
+            recorder.disable()
+        assert total.get("preemptions", 0) == 1
+        events = recorder.snapshot()
+        recorder.clear()
+        kinds = {e["kind"] for e in events}
+        assert {"preempt_propose", "preempt_commit",
+                "victim_requeue"} <= kinds, kinds
+        trace = mod["perfetto"].build_chrome_trace(events)
+        lanes = {e["args"]["name"] for e in trace["traceEvents"]
+                 if e.get("name") == "thread_name"}
+        assert "preempt" in lanes
+        names = [e["name"] for e in trace["traceEvents"]]
+        assert any(n.startswith("victim-select") for n in names), names
+        assert any(n.startswith("preempt-commit") for n in names), names
+        snap = mod["registry"].TelemetryRegistry().snapshot()
+        assert snap.get("span.engine.preempt_commits.count", 0) >= 1
+        assert "span.engine.victims_evicted.count" in snap
+        backend = mod["extender"].TPUExtenderBackend(**side["kw"])
+        dv = mod["embedded"].VerdictService(backend).debug_snapshot()["vars"]
+        assert dv.get("span.engine.preempt_commits.count", 0) >= 1
+        assert "span.engine.preempt_scan_dispatch.count" in dv
+        loop.close()
+        _close(s)
+        return (sorted(kinds), sorted(lanes),
+                sorted(n for n in names if n.startswith(
+                    ("victim-select", "preempt-commit"))),
+                _placements(api), total, _counts(side))
     _both(run)
 
 
