@@ -216,12 +216,53 @@ phase fails. Phases:
      its idle share. 13c: 13a at 512 nodes x 10 Deployments + 64 PD pods
      on the card and on the CPU: equal placements, ReplicaSets, PV
      bindings and attachments;
- 14. print the per-kernel summary line, then the result line.
+ 14. the node agents behind the card's scheduler, in one world: an
+     ApiServerLite with a HollowFleet of 5,000 hollow kubelets (each
+     registers its own Node), one SharedInformerFactory behind the
+     fleet, the NodeLifecycleController, the ReplicaSet, StatefulSet and
+     Endpoint controllers and a HollowProxy, the card's Scheduler, and
+     one FakeClock for the kubelets, the lifecycle controller and the
+     scheduler (latencies are host clock). 14a kubemark density: 15,000
+     mixed_affinity pods created bare, run_until_drained(), the fleet
+     steps them to Running; burst create -> Running p50/p90/p99 (all
+     pods created before one drain, to the first write setting Running;
+     not density.go's protocol of latency pods after saturation, so not
+     held against its SLO), pods/s, heartbeat_all's wall and what the
+     next device sync uploads; phase 6's store audit (a bind is a write
+     putting a pod on a node it was not on, per pod life), every pod
+     Running on its node, one kubelet's
+     /healthz and /pods probed with utils/probe. 14b: 4 StatefulSets of
+     16, rounds of controller pump, drain, fleet step; each ordinal
+     created only after the one before it ran (from the store's log).
+     14c: a ReplicaSet of 1,000 Running, then 150 kubelets (50 a zone,
+     one of each zone's holding a StatefulSet ordinal) stopped; 10 s
+     ticks of the FakeClock, heartbeats every 3 ticks, the lifecycle
+     controller's pass every tick (grace 40 s, eviction timeout cut to
+     60 s, 0.1 nodes/s a zone), the controllers and the scheduler every
+     5 ticks, until nothing stands on a dead node, the ReplicaSet is
+     back at 1,000 Running and every ordinal runs; each evicted
+     ReplicaSet pod replaced once on a live node, each evicted ordinal
+     recreated under its name on one; the host time of these passes is
+     logged (the FakeClock's pacing is not in it). 14d: 50 kubelets'
+     pods past the eviction threshold, a heartbeat, 200 BestEffort
+     pods: exactly those kubelets report MemoryPressure, no BestEffort
+     pod lands on them, and each evicts its BestEffort pod before the
+     hog. No pod is refused by kubelet admission (OutOfcpu,
+     OutOfmemory, OutOfPods), no pod is bound twice in one life, no
+     bind errs. Each kernel's operands at every launch shape of 14a-14d
+     are held against its plain version; both kernels must launch.
+     14e: 14a-14d at 512 kubelets on the card and on the CPU: equal
+     pods (wire JSON: node, phase, everything), StatefulSet creation
+     orders, evicted pods and replacement placements;
+ 15. print the per-kernel summary line, then the result line.
 
-Launch counts are zeroed just before each main-path run (phases 4, 5, 6,
-7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a and 13b; in 10a and 10b
-each child process counts its own) and read just after it; launches made
-by the comparisons do not count.
+Phase 1 also logs whether kubernetes_tpu_torch.native loaded
+native/libhostops.so or fell back to numpy (the snapshot's label
+scatter). Launch counts are zeroed just before each main-path run
+(phases 4, 5, 6, 7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b
+and 14a-14d as one run; in 10a and 10b each child process counts its
+own) and read just after it; launches made by the comparisons do not
+count.
 """
 
 from __future__ import annotations
@@ -1118,13 +1159,36 @@ def pipelined(mods, profile, n_nodes, n_pods, device=None, overlap=True,
     return api, tot, counters, span_ms, wall, launches
 
 
+def store_binds(api):
+    """The binds in the store's event log, per pod life: {(pod key, life):
+    [node, ...]}, one entry for each write that puts the pod on a node it
+    was not on. A key's life n ends at its n-th DELETED event, so a
+    StatefulSet ordinal recreated under its name after an eviction is life
+    1 of that key. Status writes on a bound pod (the kubelet's) are not
+    binds."""
+    life, last, binds = {}, {}, {}
+    for e in api._log:
+        if e.kind != "Pod":
+            continue
+        key = e.obj.key()
+        if e.type == "DELETED":
+            life[key] = life.get(key, 0) + 1
+            last.pop(key, None)
+            continue
+        node = e.obj.node_name
+        if node and node != last.get(key):
+            binds.setdefault((key, life.get(key, 0)), []).append(node)
+        last[key] = node
+    return binds
+
+
 def audit_store(api, profile, n_pods, exempt=frozenset()):
     """Audit a drain from the store: every pod bound or provably
     unschedulable (fits no node of the final state; pods in `exempt`, the
     members of gangs left wholly pending, are not checked alone), no node
-    over its CPU, memory or pod count, no pod bound twice; for
-    mixed_affinity and gang_mix the required (anti-)affinity of the
-    mixed_affinity pods. Returns (bound, unbound)."""
+    over its CPU, memory or pod count, no pod bound twice in one life
+    (`store_binds`); for mixed_affinity and gang_mix the required
+    (anti-)affinity of the mixed_affinity pods. Returns (bound, unbound)."""
     import numpy as np
     from kubernetes_tpu_torch.models.hollow import HOSTNAME_KEY, ZONE_KEY
     pods, _ = api.list("Pod")
@@ -1148,13 +1212,9 @@ def audit_store(api, profile, n_pods, exempt=frozenset()):
     if over.any():
         i = int(np.nonzero(over)[0][0])
         fail(f"{profile}: node {names[i]} over allocatable: {u[i]}")
-    binds = {}
-    for e in api._log:
-        if e.kind == "Pod" and e.type == "MODIFIED" and e.obj.node_name:
-            binds.setdefault(e.obj.key(), []).append(e.obj.node_name)
-    dups = sum(1 for v in binds.values() if len(v) > 1)
+    dups = sum(1 for v in store_binds(api).values() if len(v) > 1)
     if dups:
-        fail(f"{profile}: {dups} pods bound more than once")
+        fail(f"{profile}: {dups} pods bound more than once in one life")
     unbound = [p for p in pods if not p.node_name]
     free_cpu = alloc_cpu - u[:, 0]
     free_mem = alloc_mem - u[:, 1]
@@ -2506,12 +2566,8 @@ def audit_daemon_preemption(api, plans, preemptors, tag):
             fail(f"{tag}: {key} is pending but fits with every "
                  f"lower-priority pod gone")
         n_fit_nowhere += 1
-    binds = {}
-    for e in api._log:
-        if e.kind == "Pod" and e.type == "MODIFIED" and e.obj.node_name:
-            binds[e.obj.key()] = binds.get(e.obj.key(), 0) + 1
-    if any(c > 1 for c in binds.values()):
-        fail(f"{tag}: a pod bound twice")
+    if any(len(v) > 1 for v in store_binds(api).values()):
+        fail(f"{tag}: a pod bound twice in one life")
     return n_bound, n_fit_nowhere, len(seen)
 
 
@@ -4897,6 +4953,567 @@ def controllers_on_the_card(mods, card):
     return total, err
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+P14 = {"nodes": 5000, "pods": 15000, "sets": 4, "replicas": 16,
+       "rs": 1000, "dead_per_zone": 50, "pressure": 50, "best_effort": 200}
+P14_CHECK = {"nodes": 512, "pods": 1536, "sets": 4, "replicas": 16,
+             "rs": 100, "dead_per_zone": 5, "pressure": 5,
+             "best_effort": 20}                      # 14e
+P14_GRACE = 40.0              # NodeLifecycleController's default grace
+P14_EVICTION_TIMEOUT = 60.0   # --pod-eviction-timeout cut from 300 s, as
+#                               tests/test_chaos.py does
+P14_TICK = 10.0               # one token of --node-eviction-rate 0.1/s
+P14_HEARTBEAT_EVERY = 3       # ticks between heartbeats (30 s < the grace)
+P14_PUMP_EVERY = 5            # ticks between the controllers' and the
+#                               scheduler's passes while evictions run
+P14_MAX_TICKS = 200
+P14_REFUSED = ("OutOfcpu", "OutOfmemory", "OutOfPods")
+Mi14 = 1 << 20
+
+
+def node_agents_world(mods, cfg, device=None):
+    """14a-14d in one world (14e runs it at P14_CHECK on the card and on
+    the CPU): an ApiServerLite with a HollowFleet of cfg["nodes"] hollow
+    kubelets, each registering its own Node; one SharedInformerFactory
+    behind the fleet, the NodeLifecycleController, ReplicaSet, StatefulSet
+    and Endpoint controllers and a HollowProxy; the card's Scheduler; one
+    FakeClock for the kubelets, the lifecycle controller and the
+    scheduler. Returns a dict of what the checks and the log read."""
+    import urllib.request
+    import torch
+    (hollow, types, workloads, apiserver_lite, informer, kubelet_mod,
+     proxy_mod, nodelifecycle, replicaset, statefulset, endpoint,
+     Scheduler, COUNTERS, kernels, kubelet_server, probe) = mods
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    clock = FakeClock()
+    api = apiserver_lite.ApiServerLite(max_log=4_000_000)
+    factory = informer.SharedInformerFactory(api)
+    fleet = kubelet_mod.HollowFleet(api, factory, now=clock)
+    t = time.perf_counter()
+    for node in hollow.hollow_nodes(cfg["nodes"]):
+        fleet.add_node(node)
+    walls = {"register": time.perf_counter() - t}
+    nlc = nodelifecycle.NodeLifecycleController(
+        api, factory, grace_period=P14_GRACE,
+        eviction_timeout=P14_EVICTION_TIMEOUT, record_events=False,
+        now=clock)
+    rsc = replicaset.ReplicaSetController(api, factory, record_events=False)
+    ssc = statefulset.StatefulSetController(api, factory,
+                                            record_events=False)
+    epc = endpoint.EndpointController(api, factory, record_events=False)
+    proxy = proxy_mod.HollowProxy(factory)
+    sched = Scheduler(api, record_events=False, now=clock, device=device)
+    sched.start()
+    factory.step_all()
+    # the first write that sets a pod Running, on the host clock
+    running_at, created_at = {}, {}
+    update = api.update
+
+    def stamped_update(kind, obj, *a, **kw):
+        out = update(kind, obj, *a, **kw)
+        if kind == "Pod" and obj.phase == "Running":
+            running_at.setdefault(obj.key(), time.perf_counter())
+        return out
+
+    api.update = stamped_update
+    drains, tot = [], {}
+
+    def drain(tag):
+        COUNTERS.reset()
+        t = time.perf_counter()
+        got = sched.run_until_drained()
+        sync()
+        snap = COUNTERS.snapshot()
+        drains.append({
+            "tag": tag, "s": time.perf_counter() - t, "bound": got["bound"],
+            **{k: round(1e3 * v, 1) for k, (_, v) in sorted(snap.items())
+               if k.startswith("pipeline.") and v > 0},
+            **{k: n for k, (n, _) in sorted(snap.items())
+               if k.startswith("snapshot.refresh")
+               or k in ("engine.device_upload_arrays",
+                        "engine.shard_upload_bytes", "engine.wave_dispatch")}})
+        for k, v in got.items():
+            tot[k] = tot.get(k, 0) + v
+        return got
+
+    def settle():
+        """Deliver the store's events, then one kubelet sync pass."""
+        factory.step_all()
+        t = time.perf_counter()
+        fleet.step()
+        factory.step_all()
+        return time.perf_counter() - t
+
+    # ---- 14a: kubemark density
+    pods = hollow.mixed_affinity_pods(cfg["pods"])
+    sync()
+    kernels.reset_launch_counts()
+    t_first = time.perf_counter()
+    for p in pods:
+        created_at[p.key()] = time.perf_counter()
+        api.create("Pod", p)
+    walls["14a_create"] = time.perf_counter() - t_first
+    drain("14a")
+    walls["14a_drain"] = drains[-1]["s"]
+    bound = {p.key() for p in api.list("Pod")[0] if p.node_name}
+    fleet_s, passes = 0.0, 0
+    while passes < 5 and not bound <= running_at.keys():
+        fleet_s += settle()
+        passes += 1
+    walls["14a_fleet_step"] = fleet_s
+    walls["14a_fleet_passes"] = passes
+    audit_14a = audit_store(api, "mixed_affinity", cfg["pods"])
+    lat = [running_at[k] - created_at[k] for k in bound if k in running_at]
+    walls["14a_first_create_to_last_running"] = (
+        max(running_at.values()) - t_first if running_at else 0.0)
+    # heartbeats: 5,000 Node writes that change no condition
+    t = time.perf_counter()
+    fleet.heartbeat_all()
+    walls["14a_heartbeat_all"] = time.perf_counter() - t
+    factory.step_all()
+    COUNTERS.reset()
+    t = time.perf_counter()
+    sched.sync()
+    sched.engine._refresh()
+    dirty = sorted(sched.engine.snapshot.dirty)
+    sched.engine._nodes_on_device()
+    sync()
+    snap = COUNTERS.snapshot()
+    heartbeat_sync = {
+        "s": time.perf_counter() - t, "dirty": dirty,
+        **{k: n for k, (n, _) in sorted(snap.items())
+           if k.startswith("snapshot.refresh")
+           or k in ("engine.device_upload_arrays",
+                    "engine.shard_upload_bytes")}}
+    # the kubelet API of one kubelet, through the port's prober
+    kl_name = sorted(fleet.kubelets)[0]
+    kl = fleet.kubelets[kl_name]
+    srv = kubelet_server.KubeletServer(kl)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        probes = {path: probe.probe_http(base + path)
+                  for path in ("/healthz", "/pods")}
+        with urllib.request.urlopen(base + "/pods", timeout=5) as r:
+            served = json.loads(r.read())["items"]
+    finally:
+        srv.stop()
+    admitted_14a = len(kl.serve_pods())
+
+    # ---- 14b: StatefulSets, ordered
+    t = time.perf_counter()
+    for j in range(cfg["sets"]):
+        app = f"ss-{j}"
+        api.create("StatefulSet", workloads.StatefulSet(
+            name=app, replicas=cfg["replicas"],
+            selector=types.LabelSelector(match_labels={"app": app}),
+            template=types.make_pod("", labels={"app": app}, cpu=100,
+                                    memory=128 * Mi14)))
+    ss_rounds = 0
+    want_ss = cfg["sets"] * cfg["replicas"]
+
+    def ss_pods():
+        return [p for p in api.list("Pod")[0]
+                if p.owner_kind == "StatefulSet"]
+
+    while ss_rounds < 4 * cfg["replicas"]:
+        factory.step_all()
+        ssc.pump()
+        drain("14b")
+        settle()
+        ss_rounds += 1
+        if sum(p.phase == "Running" for p in ss_pods()) == want_ss:
+            break
+    factory.step_all()
+    ssc.pump()
+    walls["14b"] = time.perf_counter() - t
+    walls["14b_rounds"] = ss_rounds
+
+    # ---- 14c: node death (a Service in front of the ReplicaSet: the
+    # endpoints controller and kube-proxy follow its live pods)
+    rs_sel = types.LabelSelector(match_labels={"app": "web"})
+    api.create("Service", workloads.Service(
+        "web", "default", selector={"app": "web"},
+        ports=[workloads.ServicePort(port=80)]))
+    api.create("ReplicaSet", workloads.ReplicaSet(
+        name="web", replicas=cfg["rs"], selector=rs_sel,
+        template=types.make_pod("", labels={"app": "web"}, cpu=100,
+                                memory=128 * Mi14)))
+
+    def rs_pods():
+        return [p for p in api.list("Pod")[0]
+                if p.owner_kind == "ReplicaSet" and p.owner_name == "web"]
+
+    t = time.perf_counter()
+    for _ in range(20):
+        factory.step_all()
+        rsc.pump()
+        drain("14c_fill")
+        settle()
+        if sum(p.phase == "Running" for p in rs_pods()) == cfg["rs"]:
+            break
+    walls["14c_fill"] = time.perf_counter() - t
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    zone_of = {n: nodes[n].labels.get(hollow.ZONE_KEY) for n in nodes}
+    web_nodes = sorted({p.node_name for p in rs_pods()})
+    ss_nodes = sorted({p.node_name for p in ss_pods()})
+    dead = []
+    for zone in hollow.ZONES:
+        # one node a zone that holds a StatefulSet ordinal, then the
+        # ReplicaSet's nodes, then the rest
+        pick = [n for n in ss_nodes if zone_of[n] == zone][:1]
+        pick += [n for n in web_nodes if zone_of[n] == zone
+                 and n not in pick]
+        pick += [n for n in sorted(nodes) if zone_of[n] == zone
+                 and n not in pick]
+        dead += pick[:cfg["dead_per_zone"]]
+    dead_set = set(dead)
+    on_dead = {p.key(): p.node_name for p in api.list("Pod")[0]
+               if p.node_name in dead_set}
+    rs_on_dead = {p.key() for p in rs_pods() if p.node_name in dead_set}
+    ss_on_dead = {p.key() for p in ss_pods() if p.node_name in dead_set}
+    for name in dead:
+        del fleet.kubelets[name]          # the process is gone
+    t_first_evict = None
+    rs_before = {p.key() for p in rs_pods()}
+    t = time.perf_counter()
+    ticks = left = 0
+    while ticks < P14_MAX_TICKS:
+        ticks += 1
+        clock.t += P14_TICK
+        if ticks % P14_HEARTBEAT_EVERY == 0:
+            fleet.heartbeat_all()
+        factory.step_all()
+        nlc.monitor_tick()
+        # while pods still stand on dead nodes, the controllers and the
+        # scheduler run every P14_PUMP_EVERY ticks; after that, every tick
+        if ticks % P14_PUMP_EVERY and left:
+            continue
+        # a recreated StatefulSet ordinal keeps its key: count what still
+        # stands on a dead node, not what is present
+        left = sum(p.node_name in dead_set for p in api.list("Pod")[0])
+        if t_first_evict is None and left < len(on_dead):
+            t_first_evict = time.perf_counter()
+        factory.step_all()
+        rsc.pump()
+        ssc.pump()
+        drain("14c")
+        settle()
+        epc.pump()
+        web = rs_pods()
+        if not left and len(web) == cfg["rs"] and all(
+                p.phase == "Running" for p in web) and sum(
+                p.phase == "Running" for p in ss_pods()) == want_ss:
+            break
+    walls["14c_ticks"] = ticks
+    walls["14c"] = time.perf_counter() - t
+    replaced = {p.key(): p.node_name for p in rs_pods()
+                if p.key() not in rs_before}
+    rs_running = [running_at.get(k) for k in replaced]
+    walls["14c_first_evict_to_last_replacement_running"] = (
+        max(rs_running) - t_first_evict
+        if rs_running and None not in rs_running and t_first_evict
+        else None)
+    factory.step_all()
+    ssc.pump()
+    epc.pump()
+    factory.step_all()
+    backends = proxy.backends("default/web", 80)
+
+    # ---- 14d: memory pressure
+    live = sorted(n for n in nodes if n not in dead_set)
+    hot = live[:cfg["pressure"]]
+    hog_mem = int(nodes[hot[0]].allocatable.memory * 0.97)
+    for i, name in enumerate(hot):
+        be = types.make_pod(f"be-{i:04d}", node_name=name,
+                            labels={"app": "pressure"})
+        be.annotations[kubelet_mod.ACTUAL_MEM_ANNOTATION] = str(64 * Mi14)
+        hog = types.make_pod(f"hog-{i:04d}", cpu=100, memory=128 * Mi14,
+                             node_name=name, labels={"app": "pressure"})
+        hog.annotations[kubelet_mod.ACTUAL_MEM_ANNOTATION] = str(hog_mem)
+        api.create("Pod", be)
+        api.create("Pod", hog)
+    settle()
+    fleet.heartbeat_all()
+    factory.step_all()
+    pressured = sorted(
+        n.name for n in api.list("Node")[0]
+        if n.condition("MemoryPressure") == types.ConditionStatus.TRUE)
+    best_effort = [f"default/late-be-{i:04d}"
+                   for i in range(cfg["best_effort"])]
+    for i in range(cfg["best_effort"]):
+        api.create("Pod", types.make_pod(f"late-be-{i:04d}",
+                                         labels={"app": "late"}))
+    drain("14d")
+    settle()
+    launches = dict(kernels.LAUNCHES)
+    walls["total"] = time.perf_counter() - t_first
+    sched.engine.close()
+    return {"api": api, "walls": walls, "backends": backends,
+            "drains": drains, "tot": tot, "latency": lat,
+            "n_bound_14a": len(bound),
+            "heartbeat_sync": heartbeat_sync, "probes": probes,
+            "served": served, "admitted_14a": admitted_14a,
+            "kubelet": kl_name, "dead": dead, "on_dead": on_dead,
+            "rs_on_dead": rs_on_dead, "ss_on_dead": ss_on_dead,
+            "replaced": replaced,
+            "hot": hot, "pressured": pressured,
+            "best_effort": best_effort, "launches": launches, "cfg": cfg,
+            "ss_rounds": ss_rounds, "audit_14a": audit_14a}
+
+
+def ss_creation_order(api):
+    """Per StatefulSet, its ordinals in the order the store created
+    them, each with the log index of its creation and of the first
+    write that set its ordinal before it Running."""
+    out, running = {}, {}
+    for i, e in enumerate(api._log):
+        if e.kind != "Pod" or e.obj.owner_kind != "StatefulSet":
+            continue
+        name = e.obj.name
+        if e.type == "ADDED":
+            out.setdefault(e.obj.owner_name, []).append((name, i))
+        elif e.type == "MODIFIED" and e.obj.phase == "Running":
+            running.setdefault(name, i)
+    return out, running
+
+
+def check_node_agents(run, tag, types):
+    """14a-14d's audits (also 14e's): one bind per pod life and no bind
+    error, no pod refused by kubelet admission, 14a's pods bound and
+    Running (phase 6's store audit ran on the 14a store), the kubelet
+    server's probes, each StatefulSet ordinal created only after the one
+    before it ran, nothing left on a dead node, each evicted ReplicaSet
+    pod replaced once on a live one and each evicted ordinal recreated
+    under its name on one, every ordinal Running, MemoryPressure reported
+    by exactly the loaded kubelets, no BestEffort pod placed on them and
+    BestEffort evicted before the hog on each. Returns counts for the
+    log."""
+    api, cfg = run["api"], run["cfg"]
+    pods = api.list("Pod")[0]
+    by_key = {p.key(): p for p in pods}
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    dead = set(run["dead"])
+    # one bind per pod life, 0 bind errors
+    binds = store_binds(api)
+    twice = {k: v for k, v in binds.items() if len(v) > 1}
+    if twice or run["tot"].get("bind_errors"):
+        fail(f"{tag}: {len(twice)} pods bound twice in one life "
+             f"({sorted(twice)[:3]}), totals {run['tot']}")
+    # zero pods refused by kubelet admission
+    refused = [p.key() for p in pods if p.annotations.get(
+        "kubernetes.io/failure-reason") in P14_REFUSED]
+    if refused:
+        fail(f"{tag}: kubelet admission refused {len(refused)} pods the "
+             f"card placed ({refused[:3]})")
+    # 14a: every density pod bound and Running on its node, else fits
+    # nowhere (phase 6's rule, checked on the 14a store before the rest)
+    density = [p for p in pods if p.name.startswith("mixed-")]
+    unbound = [p for p in density if not p.node_name]
+    if unbound:
+        fail(f"{tag}: {len(unbound)} density pods unbound")
+    if run["n_bound_14a"] != cfg["pods"] or \
+            len(run["latency"]) != cfg["pods"]:
+        fail(f"{tag}: 14a bound {run['n_bound_14a']}, Running "
+             f"{len(run['latency'])} of {cfg['pods']}")
+    for p in density:
+        if p.node_name in dead:
+            continue          # evicted with its node in 14c
+        if p.phase != "Running":
+            fail(f"{tag}: {p.key()} is {p.phase} on {p.node_name}")
+    if run["probes"]["/healthz"][0] != "Success" or \
+            run["probes"]["/pods"][0] != "Success" or \
+            len(run["served"]) != run["admitted_14a"]:
+        fail(f"{tag}: kubelet server probes {run['probes']}, "
+             f"{len(run['served'])} pods served of {run['admitted_14a']}")
+    # 14b: ordinal i created only after ordinal i-1 was Running
+    order, running = ss_creation_order(api)
+    if len(order) != cfg["sets"]:
+        fail(f"{tag}: {len(order)} StatefulSets created pods")
+    for name, made in order.items():
+        first = {}
+        for pod, i in made:
+            first.setdefault(pod, i)
+        for i in range(cfg["replicas"]):
+            pod = f"{name}-{i}"
+            if pod not in first:
+                fail(f"{tag}: {pod} never created")
+            if i and not running.get(f"{name}-{i - 1}", 1 << 62) < \
+                    first[pod]:
+                fail(f"{tag}: {pod} created before {name}-{i - 1} ran")
+    # 14c: nothing left on a dead node, each evicted RS pod replaced once
+    for n in dead:
+        if nodes[n].condition("Ready") != types.ConditionStatus.UNKNOWN:
+            fail(f"{tag}: dead node {n} is not Unknown")
+    on_dead = [p.key() for p in pods if p.node_name in dead]
+    if on_dead:
+        fail(f"{tag}: {len(on_dead)} pods still on Unknown nodes "
+             f"({on_dead[:3]})")
+    web = [p for p in pods if p.owner_kind == "ReplicaSet"]
+    if len(web) != cfg["rs"] or any(p.phase != "Running" for p in web):
+        fail(f"{tag}: the ReplicaSet holds {len(web)} pods, "
+             f"{sum(p.phase == 'Running' for p in web)} Running")
+    if len(run["replaced"]) != len(run["rs_on_dead"]) or any(
+            n in dead for n in run["replaced"].values()):
+        fail(f"{tag}: {len(run['rs_on_dead'])} RS pods evicted, "
+             f"{len(run['replaced'])} replacements")
+    if not run["rs_on_dead"]:
+        fail(f"{tag}: no ReplicaSet pod stood on a killed node")
+    # each StatefulSet ordinal evicted with its node is recreated under its
+    # name (its second life) on a live node, and every ordinal runs
+    if not run["ss_on_dead"]:
+        fail(f"{tag}: no StatefulSet ordinal stood on a killed node")
+    for k in sorted(run["ss_on_dead"]):
+        again = binds.get((k, 1), [])
+        if k not in by_key or len(again) != 1 or again[0] in dead or \
+                by_key[k].node_name != again[0]:
+            fail(f"{tag}: StatefulSet ordinal {k} evicted from a killed "
+                 f"node, recreated on {again}")
+    ss = [p for p in pods if p.owner_kind == "StatefulSet"]
+    if len(ss) != cfg["sets"] * cfg["replicas"] or any(
+            p.phase != "Running" for p in ss):
+        fail(f"{tag}: {sum(p.phase == 'Running' for p in ss)} of "
+             f"{len(ss)} StatefulSet pods Running after 14c")
+    routed = sorted(node for _, _, node in run["backends"])
+    if routed != sorted(p.node_name for p in web):
+        fail(f"{tag}: kube-proxy routes to {len(routed)} backends, the "
+             f"ReplicaSet runs {len(web)} pods")
+    # 14d: pressure reported, BestEffort kept off, BestEffort evicted first
+    if run["pressured"] != sorted(run["hot"]):
+        fail(f"{tag}: MemoryPressure on {len(run['pressured'])} nodes, "
+             f"{len(run['hot'])} expected")
+    hot = set(run["hot"])
+    late = [by_key[k] for k in run["best_effort"]]
+    if any(not p.node_name for p in late) or any(
+            p.node_name in hot for p in late):
+        fail(f"{tag}: BestEffort pods unbound or on pressure nodes")
+    evicted_at = {}
+    for i, e in enumerate(api._log):
+        if e.kind == "Pod" and e.type == "MODIFIED" and \
+                e.obj.annotations.get("kubernetes.io/failure-reason") \
+                == "Evicted":
+            evicted_at.setdefault(e.obj.name, i)
+    for i in range(len(run["hot"])):
+        be, hog = evicted_at.get(f"be-{i:04d}"), evicted_at.get(
+            f"hog-{i:04d}")
+        if be is None or hog is None or not be < hog:
+            fail(f"{tag}: be-{i:04d} / hog-{i:04d} evicted at {be} / {hog}"
+                 f" (BestEffort first)")
+    return {"pods": len(pods), "binds": sum(map(len, binds.values())),
+            "ss_recreated": len(run["ss_on_dead"]),
+            "evicted_pressure": len(evicted_at)}
+
+
+def node_agents_outcome(k_wire, run):
+    """What 14e holds the card against the CPU in, as wire JSON."""
+    api = run["api"]
+    order, _ = ss_creation_order(api)
+    return {
+        "pods": sorted(json.dumps(k_wire.encode(p, kind="Pod"),
+                                  sort_keys=True)
+                       for p in api.list("Pod")[0]),
+        "statefulset_order": {s: [n for n, _ in v]
+                              for s, v in sorted(order.items())},
+        "evicted": sorted(run["on_dead"]),
+        "replacements": sorted(run["replaced"].items()),
+    }
+
+
+def node_agents_on_the_card(mods, card):
+    """Phase 14: the node agents behind the card's scheduler, 14a-14d in
+    one world on the card, then 14e (card == CPU at P14_CHECK). Returns
+    (launches of 14a-14d, max abs err per kernel)."""
+    import numpy as np
+    wire = mods[-1]
+    mods = mods[:-1]
+    kernels = mods[13]
+    t_phase = time.perf_counter()
+    err = {k: 0 for k in kernels.LAUNCHES}
+    spy = OperandSpy(kernels)
+    with spy:
+        run = node_agents_world(mods, P14)
+    audit = check_node_agents(run, "14", mods[1])
+    launches = run["launches"]
+    if launches["capacity_fit"] == 0 or launches["incidence_matmul"] == 0:
+        fail(f"14: a kernel never launched behind the node agents "
+             f"({launches})")
+    for k, v in spy.check("14 node agents").items():
+        err[k] = max(err[k], v)
+    w, lat = run["walls"], run["latency"]
+    p50, p90, p99 = (float(np.percentile(lat, q)) for q in (50, 90, 99))
+    n = P14["nodes"]
+    log(f"14a kubemark density: {n} hollow kubelets registered in "
+        f"{w['register']:.3f} s; {P14['pods']} mixed_affinity pods created "
+        f"in {w['14a_create']:.3f} s, drain {w['14a_drain']:.3f} s, fleet "
+        f"step {w['14a_fleet_step']:.3f} s ({w['14a_fleet_passes']} "
+        f"passes), heartbeat_all {w['14a_heartbeat_all']:.3f} s; burst "
+        f"create -> Running (host clock) p50 {p50:.3f} s, p90 {p90:.3f} s, "
+        f"p99 {p99:.3f} s; "
+        f"{len(lat) / w['14a_first_create_to_last_running']:.1f} pods/s "
+        f"first create to last Running; store audit (bound, unbound) "
+        f"{run['audit_14a']}; after the heartbeats, sync + refresh + "
+        f"device sync {json.dumps(run['heartbeat_sync'])}; kubelet "
+        f"{run['kubelet']} probed /healthz and /pods: "
+        f"{run['probes']['/healthz'][0]}, {run['probes']['/pods'][0]} "
+        f"({len(run['served'])} pods) [{card}]")
+    ordinals = P14["sets"] * P14["replicas"]
+    log(f"14b StatefulSets {P14['sets']} x {P14['replicas']}: "
+        f"{run['ss_rounds']} rounds in {w['14b']:.3f} s, "
+        f"{w['14b'] / P14['replicas']:.3f} s per ordinal step "
+        f"({w['14b'] / ordinals:.3f} s per ordinal of {ordinals})")
+    rec = w["14c_first_evict_to_last_replacement_running"]
+    log(f"14c node death: ReplicaSet of {P14['rs']} placed in "
+        f"{w['14c_fill']:.3f} s; {len(run['dead'])} kubelets stopped "
+        f"({P14['dead_per_zone']} per zone); {len(run['on_dead'])} pods on "
+        f"them evicted ({len(run['rs_on_dead'])} of the ReplicaSet, each "
+        f"replaced once on a live node; {len(run['ss_on_dead'])} StatefulSet "
+        f"ordinals, each recreated under its name on a live node) over "
+        f"{w['14c_ticks']} ticks of "
+        f"{P14_TICK} s in {w['14c']:.3f} s; host time of the recovery "
+        f"passes (FakeClock, a pass every {P14_PUMP_EVERY} ticks), first "
+        f"eviction to last replacement Running "
+        f"{rec if rec is None else round(rec, 3)} s")
+    log(f"14d memory pressure: {len(run['pressured'])} kubelets report "
+        f"MemoryPressure; {len(run['best_effort'])} BestEffort pods placed "
+        f"off them; BestEffort evicted before the hog on each")
+    by_tag = {}
+    for d in run["drains"]:
+        agg = by_tag.setdefault(d["tag"], {"drains": 0})
+        agg["drains"] += 1
+        for k, v in d.items():
+            if k != "tag":
+                agg[k] = round(agg.get(k, 0) + v, 3)
+    log(f"14 drains by sub-phase, summed (s, pipeline spans in ms, "
+        f"counters): {json.dumps(by_tag)}; the first: "
+        f"{json.dumps(run['drains'][0])}")
+    log(f"14 totals {json.dumps(run['tot'])}; audit {audit}; "
+        f"launches {launches}, by shape {spy.launches_by_shape()}; world "
+        f"{w['total']:.1f} s [{card}]")
+    del run
+    # 14e: card == CPU at P14_CHECK
+    outs = {}
+    for tag, dev in (("card", None), ("CPU", "cpu")):
+        t = time.perf_counter()
+        r = node_agents_world(mods, P14_CHECK, device=dev)
+        check_node_agents(r, f"14e {tag}", mods[1])
+        outs[tag] = node_agents_outcome(wire, r)
+        log(f"14e {P14_CHECK['nodes']} kubelets on the {tag}: "
+            f"{time.perf_counter() - t:.1f} s")
+    for key in outs["CPU"]:
+        if outs["card"][key] != outs["CPU"][key]:
+            fail(f"14e: card != CPU in {key}")
+    log(f"14e: card == CPU in {len(outs['CPU']['pods'])} pods (wire JSON), "
+        f"{len(outs['CPU']['statefulset_order'])} StatefulSet orders, "
+        f"{len(outs['CPU']['evicted'])} evictions and "
+        f"{len(outs['CPU']['replacements'])} replacements")
+    log(f"phase 14 launches {launches}; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4946,6 +5563,17 @@ def main() -> int:
         from kubernetes_tpu_torch.observability import __main__ as obs_cli
         from kubernetes_tpu_torch.observability import perfetto
         from kubernetes_tpu_torch.observability import recorder as rec_mod
+        from kubernetes_tpu_torch import native
+        from kubernetes_tpu_torch.api import wire
+        from kubernetes_tpu_torch.client import informer
+        from kubernetes_tpu_torch.controllers import (endpoint,
+                                                      nodelifecycle,
+                                                      replicaset,
+                                                      statefulset)
+        from kubernetes_tpu_torch.nodes import kubelet as kubelet_mod
+        from kubernetes_tpu_torch.nodes import kubelet_server
+        from kubernetes_tpu_torch.nodes import proxy as proxy_mod
+        from kubernetes_tpu_torch.utils import probe
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -4968,6 +5596,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
+    host_ops = ("native " + native._SO if native.available()
+                else "the numpy fallback")
+    log(f"host ops: {host_ops} (kubernetes_tpu_torch.native; the "
+        f"snapshot's label scatter)")
 
     # 2. kernels vs plain versions (operands of the extender cluster first)
     cache5, snap5, wl5, probes = extender_cluster(hollow, types)
@@ -5056,7 +5688,15 @@ def main() -> int:
     for k, v in err_p13.items():
         max_err[k] = max(max_err[k], v)
 
-    # 14. summary
+    # 14. the node agents behind the card's scheduler
+    launches_p14, err_p14 = node_agents_on_the_card(
+        (hollow, types, workloads, apiserver_lite, informer, kubelet_mod,
+         proxy_mod, nodelifecycle, replicaset, statefulset, endpoint,
+         Scheduler, COUNTERS, kernels, kubelet_server, probe, wire), card)
+    for k, v in err_p14.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 15. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -5070,7 +5710,8 @@ def main() -> int:
                          + launches_pipe[name] + launches_ext[name]
                          + launches_p8[name] + launches_p9[name]
                          + launches_p10[name] + launches_p11[name]
-                         + launches_p12[name] + launches_p13[name]),
+                         + launches_p12[name] + launches_p13[name]
+                         + launches_p14[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5086,7 +5727,7 @@ def main() -> int:
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
         f"mesh {launches_p11}, front door {launches_p12}, controllers "
-        f"and the trace {launches_p13}")
+        f"and the trace {launches_p13}, node agents {launches_p14}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

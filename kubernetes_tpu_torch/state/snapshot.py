@@ -388,8 +388,9 @@ class ClusterSnapshot:
             self._labels_width = want
             n = self.alloc.shape[0] if self._shape_sig else 0
             self.labels = np.zeros((n, want), dtype=np.int8)
-            # one batch numpy scatter instead of a per-row rewrite loop —
-            # this is the full-matrix rebuild every vocab growth pays
+            # batch scatter through the native encoder (C++ hostops with
+            # numpy fallback) instead of a per-row rewrite loop — this is
+            # the full-matrix rebuild every vocab growth pays
             self._scatter_labels(len(self._row_labels))
             self._vocab_dirty = False
             self.dirty.add("labels")
@@ -885,18 +886,17 @@ class ClusterSnapshot:
         return col
 
     def _scatter_labels(self, n_rows: int) -> None:
-        """Label incidence matrix in one batch numpy scatter — shared by
-        finalize_labels and the bulk rebuild."""
+        """Label incidence matrix in one batch scatter (native hostops with
+        numpy fallback) — shared by finalize_labels and the bulk rebuild."""
+        from kubernetes_tpu_torch import native as hostops
         pairs = [(i, idx)
                  for i, lbls in enumerate(self._row_labels[:n_rows])
                  for idx in (self.label_vocab.get(k, v)
                              for k, v in lbls.items())
                  if idx >= 0]
         if pairs:
-            a = np.asarray(pairs, dtype=np.int64)
-            rows, width = self.labels.shape
-            keep = (a[:, 0] < rows) & (a[:, 1] < width)
-            self.labels[a[keep, 0], a[keep, 1]] = 1
+            hostops.fill_multi_hot(np.asarray(pairs, dtype=np.int64),
+                                   self.labels)
 
     def _write_taint_row(self, i: int, node) -> None:
         for t in node.taints:

@@ -2,8 +2,9 @@
 chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
 package imports with both blocked, its mesh, sanitizer and front door
 (admission, auth, quota, the full apiserver, REST, WAL shipping), its
-trace exporter, trend reader and flight-recorder CLI, and its cloud
-provider, volumes and controllers import and run so; a spawned cell
+trace exporter, trend reader and flight-recorder CLI, its cloud
+provider, volumes and controllers, and its node agents (the kubelet, the
+CRI, kube-proxy, the probers and the host-ops loader) import and run so; a spawned cell
 process or fleet worker of the port never imports either; and its entry
 points refuse to run on a box without a card unless the caller names the
 CPU (the CLI's --trend needs no card)."""
@@ -211,6 +212,71 @@ def test_control_plane_is_scanned_and_runs_with_jax_blocked():
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    assert trend.main([]) in (0, 1)\n"
         "    assert cli.main(['--trend']) in (0, 1)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'kubernetes_tpu')\n"
+        "             and sys.modules[m] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+NODE_AGENTS = ("nodes/__init__.py", "nodes/cri.py", "nodes/checkpoint.py",
+               "nodes/images.py", "nodes/kuberuntime.py",
+               "nodes/kubelet_server.py", "nodes/kubelet.py",
+               "nodes/proxy.py", "utils/probe.py", "native/__init__.py")
+
+
+def test_node_agents_are_scanned_and_run_with_jax_blocked():
+    """The kubelet, the CRI, kube-proxy, the probers and the host-ops
+    loader are in the scan above, and they import and run in a process
+    where jax and the reference package cannot be imported: a HollowFleet
+    of 4 kubelets with a HollowProxy steps a bound pod to Running, the
+    Endpoints controller hands it to the proxy, and the snapshot's host
+    op fills a multi-hot row."""
+    for rel in NODE_AGENTS:
+        assert PKG / rel in SCANNED, rel
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        "import numpy as np\n"
+        "import kubernetes_tpu_torch.nodes.checkpoint\n"
+        "from kubernetes_tpu_torch import native\n"
+        "from kubernetes_tpu_torch.api.types import make_node, make_pod\n"
+        "from kubernetes_tpu_torch.api.workloads import Service, "
+        "ServicePort\n"
+        "from kubernetes_tpu_torch.client.informer import "
+        "SharedInformerFactory\n"
+        "from kubernetes_tpu_torch.controllers.endpoint import "
+        "EndpointController\n"
+        "from kubernetes_tpu_torch.nodes import HollowFleet, HollowProxy\n"
+        "from kubernetes_tpu_torch.server.apiserver_lite import "
+        "ApiServerLite\n"
+        "from kubernetes_tpu_torch.utils.probe import SUCCESS, "
+        "probe_exec\n"
+        "api = ApiServerLite()\n"
+        "factory = SharedInformerFactory(api)\n"
+        "fleet = HollowFleet(api, factory, now=lambda: 1000.0)\n"
+        "for i in range(4):\n"
+        "    fleet.add_node(make_node(f'n{i}', cpu=1000, memory=1 << 30))\n"
+        "proxy = HollowProxy(factory)\n"
+        "epc = EndpointController(api, factory, record_events=False)\n"
+        "api.create('Service', Service('web', 'default',\n"
+        "    selector={'app': 'web'}, ports=[ServicePort(port=80)]))\n"
+        "api.create('Pod', make_pod('p', cpu=100, node_name='n2',\n"
+        "                           labels={'app': 'web'}))\n"
+        "factory.step_all()\n"
+        "fleet.step()\n"
+        "factory.step_all()\n"
+        "epc.pump()\n"
+        "factory.step_all()\n"
+        "assert api.get('Pod', 'default', 'p').phase == 'Running'\n"
+        "assert proxy.route('default/web', 80)[2] == 'n2'\n"
+        "out = np.zeros((2, 8), dtype=np.int8)\n"
+        "native.fill_multi_hot(np.array([[0, 1], [1, 7]]), out)\n"
+        "assert out.sum() == 2 and out[1, 7] == 1\n"
+        "assert probe_exec(lambda: (0, 'ok'))[0] == SUCCESS\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'kubernetes_tpu')\n"
         "             and sys.modules[m] is not None))\n")

@@ -4,8 +4,8 @@ on both packages (the `k` fixture): plugin lookup by spec, emptyDir,
 hostPath, configMap, secret, downward API, projected and NFS payloads,
 claim resolution and local-volume node pinning, attachable mounts that
 wait for the controller's attach, in-use protection, and the
-reconciler. `test_kubelet_syncpod_gates_on_mount` drives
-nodes/kubelet, which the port does not have yet, and is left out."""
+reconciler, and the kubelet's syncPod gating its start on the mount
+(nodes/kubelet with a VolumeManager)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ MODULES = {
     "api_types": "api.types",
     "client_informer": "client.informer",
     "controllers_cloudctrl": "controllers.cloudctrl",
+    "nodes_kubelet": "nodes.kubelet",
     "server_apiserver_lite": "server.apiserver_lite",
     "volumes": "volumes",
     "volumes_plugins": "volumes.plugins",
@@ -273,3 +274,26 @@ def test_reconciler_unmounts_orphans_and_cleans_pod_dir(k):
     n = mgr.teardown_pod(p.key())
     assert n == 2
     assert p.key() not in host.fs
+
+
+def test_kubelet_syncpod_gates_on_mount(k):
+    api, host, mgr = rig(k)
+    node = api.get("Node", "", "n1")
+    kubelet = k.HollowKubelet(api, node, volume_manager=mgr)
+    p = k.make_pod("web", cpu=10, memory=Mi)
+    p.node_name = "n1"
+    p.volumes = [vol(k, "cfg", k.VolumeKind.CONFIG_MAP, "missing-cm")]
+    api.create("Pod", p)
+    kubelet.handle_pod(p)
+    kubelet.workers.drain()
+    # mount failed -> pod NOT admitted, FailedMount recorded
+    assert p.key() not in kubelet._admitted
+    assert api.get("Pod", "default", "web").annotations[
+        "kubernetes.io/failure-reason"] == "FailedMount"
+    # operator creates the configmap; next sync succeeds
+    api.create("ConfigMap", k.ConfigMap("missing-cm", "default",
+                                        data={"k": "v"}))
+    kubelet.handle_pod(p)
+    kubelet.workers.drain()
+    assert p.key() in kubelet._admitted
+    assert host.pod_dir(p.key())["cfg"]["k"] == b"v"
