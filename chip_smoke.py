@@ -254,15 +254,55 @@ phase fails. Phases:
      14e: 14a-14d at 512 kubelets on the card and on the CPU: equal
      pods (wire JSON: node, phase, everything), StatefulSet creation
      orders, evicted pods and replacement placements;
- 15. print the per-kernel summary line, then the result line.
+ 15. the command line and the hyperkube entry point in front of the
+     card's scheduler. 15a: `python -m kubernetes_tpu_torch version`,
+     `apiserver --once --nodes 16` and `scheduler --nodes 5000 --pods
+     5000` with no --device (the card is the daemon's default; without
+     one it raises) as three child processes of this interpreter started
+     together, the repository on PYTHONPATH, the kernels phase 1 built
+     found in .torch_kernels/: each exits 0 and the scheduler prints
+     bound=5000/5000; each child's wall is logged. 15b: the cluster in a
+     box of tests/test_e2e_cluster.py at 5,000 nodes: KtAdm.init into a
+     temporary directory, 8 workers joining over the bootstrap-token flow
+     (CSR, approval, signed identity; the admin labels each with its
+     hostname and zone), the admin registering 4,992 hollow nodes through
+     the apiserver, a HollowFleet of 5,000 kubelets, the Deployment and
+     ReplicaSet controllers and the card's Scheduler over the one store;
+     then the user acts only through Ktctl(cluster.api, cred=admin,
+     kubelets=...): `run web --replicas=3000`, rounds of controller
+     pump, drain and fleet step until all run; `patch deployment web -p`
+     (strategic merge: requests, tier=web-v2, a hollow log and exec
+     handler, a required pod anti-affinity on the hostname and a
+     preferred one on the zone over tier=web-v2, a 25% surge and
+     unavailability budget) and `rollout status` each round until the
+     new ReplicaSet holds 3,000 Running pods and the old ones none;
+     `scale --replicas=4500`; `drain` the node of the first web pod by
+     name; `logs --tail 1` and `exec -- hostname` on one pod through the
+     kubelet routing table; then one `get pods -o json` through
+     kubernetes_tpu_torch.__main__.main(["ktctl", "--server", URL, ...])
+     against a RestServer on the same store. Gates: phase 6's store audit
+     (one bind per pod life), no two tier=web-v2 pods on one node, the
+     drained node cordoned with no pod placed on it after the drain and
+     its pod replaced once on another node, 4,500 Running, no pod refused
+     by kubelet admission, no bind error, the canned log and exec
+     output, the Running count over HTTP equal to the in-process one,
+     both kernels launched and held against their plain versions at
+     every launch shape. The wall of each ktctl step, its rounds, its
+     drains and their pipeline spans are logged. 15c: 15b at 512 nodes
+     with 300 replicas scaled to 450 (no HTTP leg) on the card and on the
+     CPU: equal placements pod by pod, rollout rounds and status lines,
+     and equal `get pods -o wide` text;
+ 16. print the per-kernel summary line, then the result line.
 
 Phase 1 also logs whether kubernetes_tpu_torch.native loaded
 native/libhostops.so or fell back to numpy (the snapshot's label
-scatter). Launch counts are zeroed just before each main-path run
-(phases 4, 5, 6, 7, 8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b
-and 14a-14d as one run; in 10a and 10b each child process counts its
-own) and read just after it; launches made by the comparisons do not
-count.
+scatter), and whether PyYAML is importable (ktctl needs it only for -o
+yaml, create -f, apply -f and edit; phase 15 uses none of them). Launch
+counts are zeroed just before each main-path run (phases 4, 5, 6, 7,
+8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b, 14a-14d as one run
+and 15b from `ktctl run` to the last ktctl step; in 10a and 10b each
+child process counts its own, and 15a's scheduler child is not counted)
+and read just after it; launches made by the comparisons do not count.
 """
 
 from __future__ import annotations
@@ -5514,6 +5554,421 @@ def node_agents_on_the_card(mods, card):
     return launches, err
 
 
+# ---------------------------------------------------------------- phase 15
+
+# 15a: the hyperkube entry point in child processes; the scheduler child
+# runs the daemon's demo on the card by default (no --device)
+P15_SCHED = {"nodes": 5000, "pods": 5000}
+# 15b: the cluster in a box at kubemark's scale and the v1.7 cluster limit;
+# 15c runs the same script at P15_CHECK on the card and on the CPU
+P15 = {"nodes": 5000, "workers": 8, "replicas": 3000, "scaled": 4500}
+P15_CHECK = {"nodes": 512, "workers": 8, "replicas": 300, "scaled": 450}
+P15_MAX_ROUNDS = 30         # converge rounds a ktctl step may take
+P15_IMAGE = "nginx:1.13"
+P15_HOST_OUT = "web-v2"     # the hollow runtime's canned `hostname`
+
+
+def p15_patch(cfg):
+    """The strategic-merge patch of the rollout: requests for the one
+    container, the tier=web-v2 label, one hollow log and exec handler, a
+    required pod anti-affinity on the hostname over tier=web-v2 with a
+    preferred one on the zone (spread the tier across zones), and
+    apps/v1beta1's default rolling budget (25% surge, 25% unavailable).
+    The hostname term is answered per node; the zone term's domain
+    product is what reaches the incidence kernel."""
+    quarter = cfg["replicas"] // 4
+    return {
+        "max_surge": quarter, "max_unavailable": quarter,
+        "template": {
+            "labels": {"tier": "web-v2"},
+            "annotations": {"bench/log-lines": "booting\nserving",
+                            "bench/exec-hostname": P15_HOST_OUT},
+            "containers": [{"name": "web", "requests": {
+                "cpu": 100, "memory": 64 << 20}}],
+            "affinity": {"pod_anti_affinity": {
+                "required_terms": [{
+                    "label_selector": {"match_labels": {"tier": "web-v2"}},
+                    "topology_key": "kubernetes.io/hostname"}],
+                "preferred_terms": [[100, {
+                    "label_selector": {"match_labels": {"tier": "web-v2"}},
+                    "topology_key":
+                        "failure-domain.beta.kubernetes.io/zone"}]]}}}}
+
+
+def hyperkube_entry(card):
+    """15a: `python -m kubernetes_tpu_torch version`, `apiserver --once`
+    and `scheduler` (no --device: the card is its default) as child
+    processes of this interpreter, started together, the repository on
+    PYTHONPATH. Returns {component: seconds from the start to its exit}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    runs = (("version", ["version"], 120),
+            ("apiserver", ["apiserver", "--once", "--nodes", "16"], 120),
+            ("scheduler", ["scheduler", "--nodes", str(P15_SCHED["nodes"]),
+                           "--pods", str(P15_SCHED["pods"])], 600))
+    # the three children start together; each is waited for (and killed
+    # at its time limit) before the phase goes on
+    t0 = time.perf_counter()
+    procs = [(name, args, timeout, subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch", *args], cwd=repo,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, args, timeout in runs]
+    walls, outs = {}, {}
+
+    def stop_all(why):
+        for *_, p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"15a: python -m kubernetes_tpu_torch {' '.join(args)} {why}")
+
+    for name, args, timeout, proc in procs:
+        try:
+            out, err = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_all(f"ran past {timeout} s")
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            stop_all(f"exited {proc.returncode}: {err[-800:]}")
+        outs[name] = out.strip().splitlines()[-1] if out.strip() else ""
+        log(f"15a python -m kubernetes_tpu_torch {' '.join(args)}: "
+            f"{outs[name]!r}, done {walls[name]:.3f} s after the three "
+            f"children started [{card}]")
+    last = outs["scheduler"]
+    want = f"bound={P15_SCHED['pods']}/{P15_SCHED['pods']}"
+    if want not in last:
+        fail(f"15a: the scheduler child printed {last!r}, not {want}")
+    return walls
+
+
+def cli_world(mods, cfg, workdir, device=None, http=False):
+    """15b (15c at P15_CHECK): ktadm init, `workers` nodes joining over
+    the bootstrap-token flow, the admin registering the rest as hollow
+    nodes, a HollowFleet of kubelets, the Deployment and ReplicaSet
+    controllers and the Scheduler on `device` over the one store; then
+    the user acting only through ktctl: run, patch + rollout status,
+    scale, drain, logs, exec (and, with `http`, one `get pods -o json`
+    through the hyperkube entry point against a RestServer on the same
+    store). Returns a dict of what the checks and the log read."""
+    import contextlib
+    import io
+    import torch
+    (ktadm, ktctl, hyperkube, informer, deployment, replicaset, Scheduler,
+     kubelet_mod, hollow, apiserver, rest_http, kernels, COUNTERS) = mods
+    tag = "15b" if http else f"15c {device or 'card'}"
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    walls = {}
+    t = time.perf_counter()
+    adm = ktadm.KtAdm(out=io.StringIO())
+    cluster = adm.init(os.path.join(workdir, "cluster"))
+    api, store = cluster.api, cluster.api.store
+    factory = informer.SharedInformerFactory(store)
+    fleet = kubelet_mod.HollowFleet(store, factory)
+    ca = ktadm.ca_hash(cluster.ca_key)
+    for i in range(cfg["workers"]):
+        name = f"worker-{i}"
+        adm.join(cluster, name, cluster.token, ca_cert_hash=ca)
+        fleet.add_node(api.get("Node", "", name, cred=cluster.admin_cred),
+                       register=False)
+    walls["init_join"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for node in hollow.hollow_nodes(cfg["nodes"] - cfg["workers"]):
+        api.create("Node", node, cred=cluster.admin_cred)
+        fleet.add_node(node, register=False)
+    walls["register"] = time.perf_counter() - t
+    dep_ctl = deployment.DeploymentController(store, factory,
+                                              record_events=False)
+    rs_ctl = replicaset.ReplicaSetController(store, factory,
+                                             record_events=False)
+    sched = Scheduler(store, record_events=False, device=device)
+    sched.start()
+    factory.step_all()
+    out = io.StringIO()
+    kt = ktctl.Ktctl(api, out=out, cred=cluster.admin_cred,
+                     kubelets=fleet.kubelets)
+
+    def run(*argv):
+        out.truncate(0)
+        out.seek(0)
+        rc = kt.run(list(argv))
+        if rc != 0:
+            fail(f"{tag}: ktctl {' '.join(argv)[:200]} exited {rc}: "
+                 f"{out.getvalue()[-400:]}")
+        return out.getvalue()
+
+    # a joined node carries no labels; the admin gives each the hostname
+    # and zone labels a kubelet sets on itself, which the anti-affinity
+    # ranges over
+    for i in range(cfg["workers"]):
+        run("label", "nodes", f"worker-{i}",
+            f"kubernetes.io/hostname=worker-{i}",
+            f"failure-domain.beta.kubernetes.io/zone="
+            f"{hollow.ZONES[i % len(hollow.ZONES)]}")
+
+    drains, tot = [], {}
+
+    def converge(step):
+        """Controllers to quiescence, one drain, one kubelet pass."""
+        while factory.step_all() + dep_ctl.pump() + rs_ctl.pump():
+            pass
+        COUNTERS.reset()
+        t = time.perf_counter()
+        got = sched.run_until_drained()
+        sync()
+        snap = COUNTERS.snapshot()
+        drains.append({
+            "step": step, "s": time.perf_counter() - t,
+            "bound": got["bound"],
+            **{k: round(1e3 * v, 1) for k, (_, v) in sorted(snap.items())
+               if k.startswith("pipeline.") and v > 0}})
+        for k, v in got.items():
+            tot[k] = tot.get(k, 0) + v
+        factory.step_all()
+        fleet.step()
+        factory.step_all()
+
+    def web():
+        return [p for p in store.list("Pod")[0]
+                if p.labels.get("run") == "web" and not p.deleted]
+
+    def running(pods):
+        return [p for p in pods if p.phase == "Running" and p.node_name]
+
+    def until(step, done):
+        for rounds in range(1, P15_MAX_ROUNDS + 1):
+            converge(step)
+            if done():
+                return rounds
+        fail(f"{tag}: {step} did not converge in {P15_MAX_ROUNDS} rounds")
+
+    def rs_running():
+        """Running pods per ReplicaSet of the Deployment, and which of
+        them carries tier=web-v2."""
+        count = {}
+        for p in running(web()):
+            count[p.owner_name] = count.get(p.owner_name, 0) + 1
+        rses = [r for r in store.list("ReplicaSet")[0]
+                if r.owner_name == "web"]
+        new = [r.name for r in rses
+               if r.template.labels.get("tier") == "web-v2"]
+        return {r.name: count.get(r.name, 0) for r in rses}, new
+
+    rounds = {}
+    kernels.reset_launch_counts()
+    # ---- run: a Deployment of `replicas`, every pod Running
+    t = time.perf_counter()
+    run("run", "web", f"--image={P15_IMAGE}",
+        f"--replicas={cfg['replicas']}")
+    rounds["run"] = until("run", lambda: len(running(web()))
+                          == cfg["replicas"])
+    walls["run_to_all_running"] = time.perf_counter() - t
+    # ---- patch: the template changes, the rollout replaces every pod
+    t = time.perf_counter()
+    run("patch", "deployment", "web", "-p", json.dumps(p15_patch(cfg)))
+    status = []
+
+    def rolled_out():
+        status.append(run("rollout", "status", "deployment", "web").strip())
+        by_rs, new = rs_running()
+        return ("successfully rolled out" in status[-1] and len(new) == 1
+                and by_rs[new[0]] == cfg["replicas"]
+                and all(n == 0 for r, n in by_rs.items() if r != new[0])
+                and len(web()) == cfg["replicas"])
+
+    rounds["rollout"] = until("rollout", rolled_out)
+    walls["patch_to_rollout_complete"] = time.perf_counter() - t
+    # ---- scale
+    t = time.perf_counter()
+    run("scale", "deployment", "web", f"--replicas={cfg['scaled']}")
+    rounds["scale"] = until("scale", lambda: len(running(web()))
+                            == cfg["scaled"] == len(web()))
+    walls["scale"] = time.perf_counter() - t
+    # ---- drain the node of the first web pod by name
+    victim = min(running(web()), key=lambda p: p.name)
+    drained, before = victim.node_name, {p.key() for p in web()}
+    log_mark = len(store._log)
+    t = time.perf_counter()
+    drain_text = run("drain", drained)
+
+    def replaced():
+        pods = web()
+        return (len(running(pods)) == cfg["scaled"] == len(pods)
+                and victim.key() not in {p.key() for p in pods})
+
+    rounds["drain"] = until("drain", replaced)
+    walls["drain_to_replacement_running"] = time.perf_counter() - t
+    new_pods = [p for p in web() if p.key() not in before]
+    late_binds = [e.obj.key() for e in store._log[log_mark:]
+                  if e.kind == "Pod" and e.obj.node_name == drained
+                  and e.type != "DELETED" and e.obj.key() != victim.key()]
+    # ---- logs and exec on one pod through the kubelet routing table
+    probe_pod = min(running(web()), key=lambda p: p.name)
+    logs = run("logs", probe_pod.name, "--tail", "1").strip()
+    exec_out = run("exec", probe_pod.name, "--", "hostname").strip()
+    wide = run("get", "pods", "-o", "wide")
+    in_process = len(running(web()))
+    over_http = None
+    if http:
+        srv = rest_http.RestServer(apiserver.ApiServer(store=store))
+        srv.start()
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = hyperkube.main(["ktctl", "--server",
+                                     f"http://127.0.0.1:{srv.port}", "get",
+                                     "pods", "-o", "json"])
+            if rc != 0:
+                fail(f"{tag}: ktctl over HTTP exited {rc}")
+            over_http = sum(
+                1 for d in json.loads(buf.getvalue())
+                if d.get("status", d).get("phase") == "Running"
+                and d.get("metadata", d).get("labels", {}).get("run")
+                == "web")
+        finally:
+            srv.stop()
+    launches = dict(kernels.LAUNCHES)
+    return {"api": api, "store": store, "walls": walls, "rounds": rounds,
+            "drains": drains, "tot": tot, "launches": launches,
+            "status": status, "drained": drained, "victim": victim.key(),
+            "drain_text": drain_text, "new_pods": new_pods,
+            "late_binds": late_binds, "logs": logs, "exec": exec_out,
+            "wide": wide, "in_process": in_process, "over_http": over_http,
+            "nodes": cfg["nodes"], "log_len": len(store._log)}
+
+
+def check_cli_world(run, cfg, tag):
+    """15b's gates (15c runs them on both devices)."""
+    store = run["store"]
+    if run["log_len"] >= store._max_log:
+        fail(f"{tag}: the store's log was trimmed; the audits read all "
+             "of it")
+    pods = store.list("Pod")[0]
+    nodes = store.list("Node")[0]
+    if len(nodes) != run["nodes"]:
+        fail(f"{tag}: {len(nodes)} nodes registered, {run['nodes']} meant")
+    audit = audit_store(store, tag, len(pods))
+    web = [p for p in pods if p.labels.get("run") == "web"
+           and not p.deleted]
+    up = [p for p in web if p.phase == "Running" and p.node_name]
+    if len(up) != cfg["scaled"] or len(web) != cfg["scaled"]:
+        fail(f"{tag}: {len(up)} of {len(web)} web pods Running, "
+             f"{cfg['scaled']} wanted")
+    per_node = {}
+    for p in web:
+        if p.labels.get("tier") != "web-v2":
+            fail(f"{tag}: {p.key()} is not of the patched template")
+        if p.node_name:
+            per_node[p.node_name] = per_node.get(p.node_name, 0) + 1
+    crowded = {n: c for n, c in per_node.items() if c > 1}
+    if crowded:
+        fail(f"{tag}: tier=web-v2 pods share {len(crowded)} nodes "
+             f"({sorted(crowded.items())[:3]})")
+    node = {n.name: n for n in nodes}[run["drained"]]
+    if not node.unschedulable:
+        fail(f"{tag}: the drained node {run['drained']} is not cordoned")
+    if run["late_binds"] or per_node.get(run["drained"]):
+        fail(f"{tag}: pods placed on the cordoned node {run['drained']} "
+             f"after the drain ({run['late_binds'][:3]})")
+    evicted = f"pod/{run['victim'].split('/')[1]} evicted"
+    if len(run["new_pods"]) != 1 or run["new_pods"][0].node_name in (
+            "", run["drained"]) or evicted not in run["drain_text"]:
+        fail(f"{tag}: the drained pod {run['victim']} was replaced by "
+             f"{[(p.key(), p.node_name) for p in run['new_pods']]}")
+    refused = sorted({e.obj.key() for e in store._log if e.kind == "Pod"
+                      and e.obj.annotations.get(
+                          "kubernetes.io/failure-reason") in P14_REFUSED})
+    if refused:
+        fail(f"{tag}: kubelet admission refused {len(refused)} pods "
+             f"({refused[:3]})")
+    if run["tot"].get("bind_errors"):
+        fail(f"{tag}: bind errors {run['tot']}")
+    if run["logs"] != "serving" or run["exec"] != P15_HOST_OUT:
+        fail(f"{tag}: logs {run['logs']!r}, exec {run['exec']!r}")
+    if run["over_http"] is not None and run["over_http"] != \
+            run["in_process"]:
+        fail(f"{tag}: {run['over_http']} Running over HTTP, "
+             f"{run['in_process']} in process")
+    return audit
+
+
+def cli_outcome(run):
+    """What 15c holds the card against the CPU in."""
+    return {"placements": sorted((p.key(), p.node_name, p.phase)
+                                 for p in run["store"].list("Pod")[0]),
+            "wide": run["wide"], "rounds": run["rounds"],
+            "status": run["status"]}
+
+
+def command_line_on_the_card(mods, card):
+    """Phase 15: the hyperkube entry point (15a), the cluster in a box
+    driven through ktctl in front of the card's scheduler (15b), card ==
+    CPU (15c). Returns (launches of 15b, max abs err per kernel)."""
+    import tempfile
+    kernels = mods[11]
+    t_phase = time.perf_counter()
+    err = {k: 0 for k in kernels.LAUNCHES}
+    walls_a = hyperkube_entry(card)
+    spy = OperandSpy(kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        with spy:
+            run = cli_world(mods, P15, tmp, http=True)
+    audit = check_cli_world(run, P15, "15b")
+    launches = run["launches"]
+    if launches["capacity_fit"] == 0 or launches["incidence_matmul"] == 0:
+        fail(f"15b: a kernel never launched behind ktctl ({launches})")
+    for k, v in spy.check("15b command line").items():
+        err[k] = max(err[k], v)
+    w = run["walls"]
+    log(f"15b cluster in a box: ktadm init + {P15['workers']} joins "
+        f"{w['init_join']:.3f} s, {P15['nodes'] - P15['workers']} hollow "
+        f"nodes registered by the admin {w['register']:.3f} s; ktctl run "
+        f"--replicas={P15['replicas']} to all Running "
+        f"{w['run_to_all_running']:.3f} s ({run['rounds']['run']} rounds); "
+        f"patch to rollout complete {w['patch_to_rollout_complete']:.3f} s "
+        f"({run['rounds']['rollout']} rounds); scale to {P15['scaled']} "
+        f"{w['scale']:.3f} s ({run['rounds']['scale']} rounds); drain "
+        f"{run['drained']} to replacement Running "
+        f"{w['drain_to_replacement_running']:.3f} s "
+        f"({run['rounds']['drain']} rounds) [{card}]")
+    log(f"15b rollout status lines: {run['status']}")
+    log(f"15b logs {run['logs']!r}, exec {run['exec']!r}; get pods -o json "
+        f"over HTTP: {run['over_http']} Running web pods, in process "
+        f"{run['in_process']}; store audit (bound, unbound) {audit}")
+    by_step = {}
+    for d in run["drains"]:
+        agg = by_step.setdefault(d["step"], {"drains": 0})
+        agg["drains"] += 1
+        for k, v in d.items():
+            if k != "step":
+                agg[k] = round(agg.get(k, 0) + v, 3)
+    log(f"15b drains by ktctl step, summed (s, pipeline spans in ms): "
+        f"{json.dumps(by_step)}")
+    log(f"15b totals {json.dumps(run['tot'])}; launches {launches}, by "
+        f"shape {spy.launches_by_shape()} [{card}]")
+    del run
+    outs = {}
+    for tag, dev in (("card", None), ("CPU", "cpu")):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            r = cli_world(mods, P15_CHECK, tmp, device=dev)
+        check_cli_world(r, P15_CHECK, f"15c {tag}")
+        outs[tag] = cli_outcome(r)
+        log(f"15c {P15_CHECK['nodes']} nodes, {P15_CHECK['replicas']} -> "
+            f"{P15_CHECK['scaled']} replicas on the {tag}: "
+            f"{time.perf_counter() - t:.1f} s")
+    for key in outs["CPU"]:
+        if outs["card"][key] != outs["CPU"][key]:
+            fail(f"15c: card != CPU in {key}")
+    log(f"15c: card == CPU in {len(outs['CPU']['placements'])} placements "
+        f"and the get pods -o wide text ({len(outs['CPU']['wide'])} chars)")
+    log(f"phase 15 launches {launches}; 15a children "
+        f"{json.dumps({k: round(v, 3) for k, v in walls_a.items()})} s; "
+        f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5574,6 +6029,9 @@ def main() -> int:
         from kubernetes_tpu_torch.nodes import kubelet_server
         from kubernetes_tpu_torch.nodes import proxy as proxy_mod
         from kubernetes_tpu_torch.utils import probe
+        from kubernetes_tpu_torch import __main__ as hyperkube
+        from kubernetes_tpu_torch.cli import ktadm, ktctl
+        from kubernetes_tpu_torch.controllers import deployment
     except ImportError as e:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -5600,6 +6058,13 @@ def main() -> int:
                 else "the numpy fallback")
     log(f"host ops: {host_ops} (kubernetes_tpu_torch.native; the "
         f"snapshot's label scatter)")
+    try:
+        import yaml
+        yaml_state = f"PyYAML {yaml.__version__} importable"
+    except ImportError:
+        yaml_state = ("PyYAML not importable (ktctl's -o yaml, create -f, "
+                      "apply -f and edit need it; phase 15 uses none)")
+    log(f"yaml: {yaml_state}")
 
     # 2. kernels vs plain versions (operands of the extender cluster first)
     cache5, snap5, wl5, probes = extender_cluster(hollow, types)
@@ -5696,7 +6161,15 @@ def main() -> int:
     for k, v in err_p14.items():
         max_err[k] = max(max_err[k], v)
 
-    # 15. summary
+    # 15. the command line and the hyperkube entry point
+    launches_p15, err_p15 = command_line_on_the_card(
+        (ktadm, ktctl, hyperkube, informer, deployment, replicaset,
+         Scheduler, kubelet_mod, hollow, apiserver, rest_http, kernels,
+         COUNTERS), card)
+    for k, v in err_p15.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 16. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -5711,7 +6184,7 @@ def main() -> int:
                          + launches_p8[name] + launches_p9[name]
                          + launches_p10[name] + launches_p11[name]
                          + launches_p12[name] + launches_p13[name]
-                         + launches_p14[name]),
+                         + launches_p14[name] + launches_p15[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5727,7 +6200,8 @@ def main() -> int:
         f"daemon and Policy {launches_p8}, gangs, preemption and the fast "
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
         f"mesh {launches_p11}, front door {launches_p12}, controllers "
-        f"and the trace {launches_p13}, node agents {launches_p14}")
+        f"and the trace {launches_p13}, node agents {launches_p14}, "
+        f"command line {launches_p15}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -492,7 +492,7 @@ class ShardGroup:
             self._arrived += 1
             if self._arrived == self.mesh.size:
                 try:
-                    self._result = self._combine(combine)
+                    self._result = self._combine_locked(combine)
                 except BaseException as e:
                     self._error = e
                     self._cv.notify_all()
@@ -518,7 +518,7 @@ class ShardGroup:
             r, ev_r = self._result
         return self._deliver(d, r, ev_r)
 
-    def _combine(self, combine):
+    def _combine_locked(self, combine):
         dev0 = self.mesh.devices[0]
         s0 = self.streams[0]
         xs = []

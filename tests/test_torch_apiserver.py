@@ -1,7 +1,7 @@
 """The port's full apiserver (server/apiserver.py with auth/, admission/
 and server/extensions.py behind it) against the reference's. The bodies
-of tests/test_apiserver_chain.py run on both packages (the `k` fixture;
-the two that drive cli/ktctl wait for its port). Then one scripted
+of tests/test_apiserver_chain.py run on both packages (the `k` fixture),
+the two that drive cli/ktctl's --as included. Then one scripted
 request sequence goes through both with a fixed clock: every result or
 typed error and every audit entry (all fields, the timestamp too) must
 be equal, under an audit policy, with impersonation, bindings and
@@ -30,6 +30,7 @@ MODULES = {
     "authn": "auth.authn", "authz": "auth.authz",
     "apiserver": "server.apiserver", "lite": "server.apiserver_lite",
     "features": "utils.features", "hollow": "models.hollow",
+    "ktctl": "cli.ktctl",
 }
 
 Mi = 1024 * 1024
@@ -485,10 +486,43 @@ def test_impersonation_filter(k):
             impersonate_groups=("system:masters",)))
 
 
+def test_ktctl_as_flag_impersonates(k):
+    import io
+
+    api = make_server(k, auth=True, tokens={
+        "admin": k.UserInfo("root", groups=["system:masters"]),
+        "ci": k.UserInfo("ci-bot")})
+    api.store.create("ClusterRole", k.ClusterRole("impersonator", rules=[
+        k.PolicyRule(verbs=["impersonate"], resources=["users"])]))
+    api.store.create("ClusterRoleBinding", k.ClusterRoleBinding(
+        "ci-imp", subjects=[k.Subject("User", "ci-bot")],
+        role_ref=k.RoleRef("ClusterRole", "impersonator")))
+    api.store.create("Role", k.Role("pod-reader", "default", rules=[
+        k.PolicyRule(verbs=["get", "list"], resources=["pods"])]))
+    api.store.create("RoleBinding", k.RoleBinding(
+        "read-pods", "default", subjects=[k.Subject("User", "dev-user")],
+        role_ref=k.RoleRef("Role", "pod-reader")))
+    api.create("Pod", k.make_pod("p"), cred=k.Credential(token="admin"))
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out, cred=k.Credential(token="ci"))
+    # ci-bot alone cannot list pods...
+    with pytest.raises(k.Forbidden):
+        kt.run(["get", "pods"])
+    # ...but --as dev-user can (and only for this invocation)
+    assert kt.run(["get", "pods", "--as", "dev-user"]) == 0
+    assert "p" in out.getvalue()
+    with pytest.raises(k.Forbidden):
+        kt.run(["get", "pods"])
+
+
 def test_denied_impersonation_is_audited(k):
-    """The apiserver half of the reference's
-    test_denied_impersonation_is_audited_and_equals_form_caught (its
-    `--as=` half drives cli/ktctl)."""
+    """The reference's
+    test_denied_impersonation_is_audited_and_equals_form_caught: a 403
+    impersonation attempt lands in the audit log attributed to the REAL
+    user, and ktctl's --as=value equals form cannot slip past as an
+    ordinary flag."""
+    import io
+
     api = make_server(k, auth=True, tokens={
         "admin": k.UserInfo("root", groups=["system:masters"]),
         "dev": k.UserInfo("dev-user")})
@@ -497,6 +531,11 @@ def test_denied_impersonation_is_audited(k):
                                           impersonate_user="root"))
     denied = [e for e in api.audit_log if e.code == 403]
     assert denied and denied[-1].user == "dev-user"
+    # equals form: same Forbidden as the space form, never full privilege
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out, cred=k.Credential(token="dev"))
+    with pytest.raises(k.Forbidden):
+        kt.run(["get", "pods", "--as=root"])
 
 
 def test_denied_impersonation_audited_on_watch_and_bind_many(k):

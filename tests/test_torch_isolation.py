@@ -3,11 +3,13 @@ chip_smoke.py nor kernel_ab.py, imports jax or the reference package; the
 package imports with both blocked, its mesh, sanitizer and front door
 (admission, auth, quota, the full apiserver, REST, WAL shipping), its
 trace exporter, trend reader and flight-recorder CLI, its cloud
-provider, volumes and controllers, and its node agents (the kubelet, the
-CRI, kube-proxy, the probers and the host-ops loader) import and run so; a spawned cell
-process or fleet worker of the port never imports either; and its entry
-points refuse to run on a box without a card unless the caller names the
-CPU (the CLI's --trend needs no card)."""
+provider, volumes and controllers, its node agents (the kubelet, the
+CRI, kube-proxy, the probers and the host-ops loader), and its command
+line (the hyperkube dispatcher, ktctl, ktadm, strategic merge patch) and
+linter (graftlint's engine, rules and CLI) import and run so; a spawned
+cell process or fleet worker of the port never imports either; and its
+entry points refuse to run on a box without a card unless the caller
+names the CPU (the CLI's --trend needs no card)."""
 
 import ast
 import json
@@ -286,6 +288,57 @@ def test_node_agents_are_scanned_and_run_with_jax_blocked():
     assert out.stdout.strip() == "[]"
 
 
+COMMAND_LINE = (
+    "__main__.py", "cli/strategicpatch.py", "cli/ktctl.py", "cli/ktadm.py",
+    "analysis/lint.py", "analysis/__main__.py", "analysis/rules/__init__.py",
+    "analysis/rules/base.py", "analysis/rules/gl001_aliasing.py",
+    "analysis/rules/gl002_hostsync.py", "analysis/rules/gl003_recompile.py",
+    "analysis/rules/gl004_tracer.py", "analysis/rules/gl005_generation.py",
+    "analysis/rules/gl006_lockorder.py", "analysis/rules/gl007_tornread.py",
+    "analysis/rules/gl008_blockloop.py",
+    "analysis/rules/gl009_spawnsafety.py")
+
+
+def test_command_line_and_linter_are_scanned_and_run_with_jax_blocked(
+        tmp_path):
+    """The 17 modules of the command line and the linter are in the scan
+    above, and they import and run in a process where jax and the
+    reference package cannot be imported: the dispatcher prints its
+    version, ktadm inits a cluster and a node joins it, ktctl runs a
+    Deployment through a strategic-merge patch, and the linter lints the
+    dispatcher clean."""
+    for rel in COMMAND_LINE:
+        assert PKG / rel in SCANNED, rel
+    code = (
+        "import io, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        "from kubernetes_tpu_torch.__main__ import main\n"
+        "from kubernetes_tpu_torch.analysis import run_paths\n"
+        "from kubernetes_tpu_torch.cli.ktadm import KtAdm, ca_hash\n"
+        "from kubernetes_tpu_torch.cli.ktctl import Ktctl\n"
+        "assert main(['version']) == 0\n"
+        "adm = KtAdm(out=io.StringIO())\n"
+        f"c = adm.init({str(tmp_path / 'c')!r})\n"
+        "adm.join(c, 'w0', c.token, ca_cert_hash=ca_hash(c.ca_key))\n"
+        "kt = Ktctl(c.api, out=io.StringIO(), cred=c.admin_cred)\n"
+        "assert kt.run(['run', 'web', '--image=x', '--replicas=2']) == 0\n"
+        "assert kt.run(['patch', 'deployment', 'web', '-p',\n"
+        "               json.dumps({'replicas': 3})]) == 0\n"
+        "assert c.api.store.get('Deployment', 'default', 'web')"
+        ".replicas == 3\n"
+        "found, _, errors = run_paths([sys.modules["
+        "'kubernetes_tpu_torch.__main__'].__file__])\n"
+        "assert found == [] and errors == []\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'kubernetes_tpu')\n"
+        "             and sys.modules[m] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def _cli(*args):
     return subprocess.run(
         [sys.executable, "-m", "kubernetes_tpu_torch.observability", *args],
@@ -341,6 +394,9 @@ def test_entry_points_default_to_the_card():
         CellAgent("c0", [])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh(4)
+    from kubernetes_tpu_torch.__main__ import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["scheduler", "--nodes", "4", "--pods", "4"])
 
 
 class _StopAtOnce:

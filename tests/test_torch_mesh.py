@@ -623,3 +623,25 @@ def test_relist_keeps_the_mesh():
     got = {p.name: p.node_name for p in api.list("Pod")[0]}
     want, _ = _drain("port", None, n_nodes=32, n_pods=100)
     assert got == want and all(got.values())
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_combine_locked_keeps_placements(d, monkeypatch):
+    """ShardGroup's combine step is `_combine_locked`, the name graftlint
+    reads as "the caller holds the lock" (GL007): every call runs under
+    the group's condition, and a drain on D CPU shards gives the
+    unsharded drain's placements and the reference's D-device mesh's."""
+    assert not hasattr(tmesh.ShardGroup, "_combine")
+    real = tmesh.ShardGroup._combine_locked
+    held = []
+
+    def combine_locked(self, combine):
+        held.append(self._cv._is_owned())
+        return real(self, combine)
+
+    monkeypatch.setattr(tmesh.ShardGroup, "_combine_locked", combine_locked)
+    p0, _ = _drain("port", None)
+    pd, _ = _drain("port", _tmesh(d))
+    pr, _ = _drain("ref", jmesh.make_mesh(d))
+    assert p0 == pd == pr and all(p0.values())
+    assert held and all(held)

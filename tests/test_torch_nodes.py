@@ -1,7 +1,7 @@
 """The port's node agents (nodes/, utils/probe.py) against the
 reference's. The bodies of tests/test_nodes.py, tests/test_kubelet_depth.py,
-tests/test_probe.py and the two cases of tests/test_kubelet_server.py that
-need no ktctl run on both packages (the `k` fixture, one FakeClock per
+tests/test_probe.py and tests/test_kubelet_server.py (its ktctl logs and
+exec cases included) run on both packages (the `k` fixture, one FakeClock per
 case, every Scheduler and SchedulerDaemon of the port on the CPU): the
 hollow kubelet's pod lifecycle, admission, heartbeats, probes, pressure
 eviction, pod workers and static pods, kube-proxy's round-robin, the
@@ -42,6 +42,7 @@ MODULES = {
     "nodes": "nodes",
     "nodes_kubelet": "nodes.kubelet",
     "nodes_kubelet_server": "nodes.kubelet_server",
+    "cli_ktctl": "cli.ktctl",
     "nodes_proxy": "nodes.proxy",
     "server_apiserver": "server.apiserver",
     "server_apiserver_lite": "server.apiserver_lite",
@@ -687,6 +688,74 @@ def test_kubelet_server_endpoints(k):
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(req)
         assert ei.value.code == 501
+    finally:
+        srv.stop()
+
+
+def test_ktctl_logs_and_exec_in_process(k):
+    import io
+
+    api, kubelet, pod = rig(k)
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out, kubelets={"n1": kubelet})
+    assert kt.run(["logs", "web"]) == 0
+    assert "line2" in out.getvalue()
+    out.truncate(0), out.seek(0)
+    assert kt.run(["logs", "web", "--tail", "1"]) == 0
+    assert out.getvalue().strip() == "line3"
+    out.truncate(0), out.seek(0)
+    assert kt.run(["exec", "web", "--", "cat", "/etc/hostname"]) == 0
+    assert out.getvalue().strip() == "web-host"
+    # unknown command and unknown node fail cleanly
+    assert kt.run(["exec", "web", "--", "reboot"]) == 1
+    p2 = k.make_pod("pending", cpu=10, memory=Mi)
+    api.create("Pod", p2)
+    assert kt.run(["logs", "pending"]) == 1
+
+
+def test_ktctl_logs_over_http(k):
+    import io
+
+    api, kubelet, pod = rig(k)
+    srv = k.KubeletServer(kubelet)
+    srv.start()
+    try:
+        out = io.StringIO()
+        kt = k.Ktctl(api, out=out,
+                     kubelets={"n1": f"http://127.0.0.1:{srv.port}"})
+        assert kt.run(["logs", "web", "--tail", "2"]) == 0
+        assert out.getvalue().strip() == "line2\nline3"
+        out.truncate(0), out.seek(0)
+        assert kt.run(["exec", "web", "--", "cat", "/etc/hostname"]) == 0
+        assert out.getvalue().strip() == "web-host"
+    finally:
+        srv.stop()
+
+
+def test_tail_zero_and_bad_tail(k):
+    """kubectl --tail=0 prints nothing; a non-numeric tail is a 400, not
+    a traceback."""
+    import io
+
+    api, kubelet, pod = rig(k)
+    assert kubelet.serve_logs("default", "web", tail="0") == ""
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out, kubelets={"n1": kubelet})
+    assert kt.run(["logs", "web", "--tail", "0"]) == 0
+    assert out.getvalue().strip() == ""
+    assert kt.run(["logs", "web", "--tail", "xyz"]) == 1
+    assert kt.run(["logs", "no-such-pod"]) == 1  # clean error, rc=1
+    srv = k.KubeletServer(kubelet)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(
+                base + "/containerLogs/default/web?tailLines=0") as r:
+            assert r.read() == b""
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(
+                base + "/containerLogs/default/web?tailLines=abc")
+        assert ei.value.code == 400
     finally:
         srv.stop()
 

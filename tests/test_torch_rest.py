@@ -2,8 +2,8 @@
 server/openapi.py, server/extensions.py, api/fields.py) against the
 reference's. The bodies of tests/test_apiextensions.py,
 tests/test_field_selectors.py and tests/test_openapi.py run on both
-packages (the `k` fixture; the cases that drive cli/ktctl wait for its
-port). Then one request sequence, the same bytes, goes over HTTP to both
+packages (the `k` fixture), the cases that drive cli/ktctl included.
+Then one request sequence, the same bytes, goes over HTTP to both
 packages' RestServers on equal worlds: every status code and every JSON
 body must be equal (CRDs, discovery, /openapi/v2, /version, field
 selectors, watch, subresources), and each typed error reaches its own
@@ -27,6 +27,7 @@ MODULES = {
     "apiserver": "server.apiserver", "lite": "server.apiserver_lite",
     "extensions": "server.extensions", "openapi": "server.openapi",
     "rest_http": "server.rest_http", "rest_client": "cli.rest_client",
+    "ktctl": "cli.ktctl",
 }
 
 Mi = 1 << 20
@@ -356,6 +357,73 @@ def test_crd_watch_over_rest(k):
         srv.stop()
 
 
+def test_ktctl_crd_workflow(k, tmp_path):
+    import io
+
+    api = make_server(k)
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out)
+    # apply an upstream-shaped CRD manifest (apiextensions.k8s.io v1.7 era)
+    manifest = tmp_path / "crd.yaml"
+    manifest.write_text("""
+apiVersion: apiextensions.k8s.io/v1beta1
+kind: CustomResourceDefinition
+metadata:
+  name: tputopologies.sched.example.io
+spec:
+  group: sched.example.io
+  version: v1
+  scope: Namespaced
+  names:
+    plural: tputopologies
+    kind: TpuTopology
+    shortNames: [tt]
+  validation:
+    openAPIV3Schema:
+      properties:
+        spec:
+          required: [chips]
+          properties:
+            chips: {type: integer, minimum: 1}
+---
+apiVersion: sched.example.io/v1
+kind: TpuTopology
+metadata:
+  name: ring0
+  namespace: default
+spec:
+  chips: 128
+""")
+    assert kt.run(["create", "-f", str(manifest)]) == 0
+    assert kt.run(["get", "tputopologies", "-n", "default"]) == 0
+    assert "ring0" in out.getvalue()
+    # short-name resolution via discovery
+    assert kt.run(["get", "tt", "ring0", "-n", "default",
+                   "-o", "json"]) == 0
+    assert '"chips": 128' in out.getvalue()
+    # api-resources lists the custom group
+    assert kt.run(["api-resources"]) == 0
+    assert "sched.example.io" in out.getvalue()
+    # delete through the CLI
+    assert kt.run(["delete", "tputopologies", "ring0", "-n", "default"]) == 0
+    assert kt.run(["get", "tputopologies", "-n", "default"]) == 0
+
+
+def test_ktctl_prints_real_plural_for_custom_kinds(k):
+    import io
+
+    api = make_server(k)
+    api.create("CustomResourceDefinition", make_crd(k))
+    api.create("TpuTopology", k.CustomResource(
+        "TpuTopology", "ring0", namespace="default", spec={"chips": 8}))
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out)
+    assert kt.run(["get", "tputopologies", "-n", "default",
+                   "-o", "name"]) == 0
+    assert "tputopologies/ring0" in out.getvalue()
+    assert "tputopologys" not in out.getvalue()
+
+
 # ----------------------------------------- tests/test_field_selectors.py
 
 
@@ -412,9 +480,10 @@ def test_generic_kind_supports_metadata_only(k):
 
 
 def test_field_selector_over_rest(k):
-    """The REST half of the reference's
-    test_field_selector_over_rest_and_cli (its CLI half drives
-    cli/ktctl)."""
+    """The reference's test_field_selector_over_rest_and_cli: the REST
+    half, then the CLI half through ktctl."""
+    import io
+
     api = fs_server(k)
     srv = k.RestServer(api)
     srv.start()
@@ -426,6 +495,24 @@ def test_field_selector_over_rest(k):
             client.list("Pod", field_selector="nope=1")
     finally:
         srv.stop()
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out)
+    assert kt.run(["get", "pods", "--field-selector",
+                   "status.phase=Running", "-o", "name"]) == 0
+    assert sorted(out.getvalue().split()) == ["pods/p0", "pods/p2"]
+    # bad selector: clean CLI error
+    assert kt.run(["get", "pods", "--field-selector", "bogus"]) == 1
+
+
+def test_named_get_with_selector_is_rejected(k):
+    import io
+
+    api = fs_server(k)
+    out = io.StringIO()
+    kt = k.Ktctl(api, out=out)
+    assert kt.run(["get", "pods", "p0", "--field-selector",
+                   "spec.nodeName=n1"]) == 1
+    assert "cannot be combined" in out.getvalue()
 
 
 def test_filter_objects_direct(k):
