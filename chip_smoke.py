@@ -33,8 +33,8 @@ phase fails. Phases:
      (fresh cache), on 5,000 hollow nodes through
      SchedulingEngine.schedule(mode="wave"), and audit the placements from
      the cache (capacity, pod caps, unplaced pods fit nowhere); the
-     capacity kernel ran once per wave (plus once per pod of a strict-loop
-     finish), and both its outputs equal their plain versions on each
+     capacity kernel ran once per wave (plus once per straggler of the
+     strict-loop finish, which steps the live rows only), and both its outputs equal their plain versions on each
      drain's end state;
   5. the extender verdict: evaluate_pod for affinity probes against a
      5,000-node cluster holding 3,000 bound mixed-affinity pods, on the
@@ -142,17 +142,26 @@ phase fails. Phases:
      (parallel/mesh.make_mesh(D) repeats the one device). 11a:
      Scheduler(mesh=make_mesh(4)).run_until_drained() at 5,000 x 30,000,
      density and mixed_affinity: placements equal phase 6's unsharded
-     drains, phase 6's store audit, both kernels launched on every shard
-     at the per-shard width 1,250 and held against their plain versions
-     at every launch shape, the two-stage reduce and the per-shard row
-     delta counted (engine.reduce_candidate_rows, shard_delta_rows) and
-     host_fetch_bytes per wave printed. 11b: bench.py _scale_drain_impl's
-     engine-level drain (density, 5,000 x 30,000, chunks of 4,096) at
+     drains, phase 6's store audit, both kernels launched on every shard,
+     EVERY launch (the strict tails' included: the scan, the conflict
+     rounds and their occupancy seeds run per shard) at the per-shard
+     width 1,250, and each held against its plain version at every
+     launch shape; mixed_affinity ran a strict tail
+     (engine.wave_tail_dispatch, tail_round_dispatch); the two-stage
+     reduce and the per-shard row delta counted
+     (engine.reduce_candidate_rows, shard_delta_rows), host_fetch_bytes
+     per wave printed, and each wall beside phase 6's and the D = 4
+     walls of the gathered tails (GATHERED_TAILS_WALL). 11b: bench.py
+     _scale_drain_impl's engine-level drain (density, 5,000 x 30,000, chunks of 4,096) at
      D = 1, 2 and 4: the same placement sha256 at every D, capacity
      launched on every shard at width 5,000 / D and held against its
      plain version at every launch shape, walls printed.
      11c: mixed_affinity at 512 x 3,000 with D = 8, on the card and on the
-     CPU, equal to phase 6's unsharded CPU run. 11d: GRAFT_SANITIZE=1: the
+     CPU, equal to phase 6's unsharded CPU run; then a classic round,
+     SchedulingEngine.schedule(mode="wave") of a mixed_affinity batch
+     with strict rows (engine.classic_strict_rows > 0) at 512 x 3,000 on
+     D = 8, on the card and on the CPU, each equal to the unsharded CPU
+     round, every card launch at the per-shard width 64. 11d: GRAFT_SANITIZE=1: the
      512 x 3,000 mixed_affinity drain on the card and on a D = 4 mesh,
      equal to the unsanitized run, with the seams' alias checks and seals
      counted; an aliasing upload constructor on a CPU tensor raises;
@@ -307,6 +316,7 @@ and read just after it; launches made by the comparisons do not count.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -909,12 +919,11 @@ def drain(hollow, kernels, SchedulingEngine, profile, card):
         f"{placed}, waves {eng.last_wave_stats}, wall {wall:.3f} s, "
         f"{N_PODS / wall:.0f} pods/s, launches {launches} [{card}]")
     log(f"drain {profile} spans (ms): " + json.dumps(spans("engine.")))
-    # one capacity launch per wave, plus one per pod of a strict-loop
-    # finish (padded to its bucket)
+    # one capacity launch per wave, plus one per straggler of the
+    # strict-loop finish (the scan steps the live rows only)
     from kubernetes_tpu_torch.ops import predicates as preds
     stats = eng.last_wave_stats
-    want = stats["waves"] + (preds.bucket(stats["stragglers"])
-                             if stats["stragglers"] else 0)
+    want = stats["waves"] + stats["stragglers"]
     if launches["capacity_fit"] != want:
         fail(f"drain {profile}: {launches['capacity_fit']} capacity "
              f"launches for {stats}")
@@ -1317,6 +1326,7 @@ def pipelined_drains(mods, card):
             fail(f"pipelined {profile}: {unbound} pods unbound")
         if profile != "binpack":
             flat[profile] = placements(api)
+            flat[("wall", profile)] = wall
         log(f"pipelined drain {profile}: {N_NODES} nodes x {N_PODS} pods "
             f"through Scheduler.run_until_drained, bound {bound}, "
             f"unschedulable {unbound}, wall {wall:.3f} s, "
@@ -3768,6 +3778,10 @@ def federation_and_fleet(mods, card):
 # ---------------------------------------------------------------- phase 11
 
 MESH_D = 4               # 11a, 11d: the shards of one card
+# 11a's D = 4 walls when the strict tails still ran on the node axis
+# assembled on the first device (a run of this script on NVIDIA H100 80GB
+# HBM3, 700.00 W)
+GATHERED_TAILS_WALL = {"density": 1.885, "mixed_affinity": 3.861}
 SWEEP_D = (1, 2, 4)      # 11b: bench.py measure_scale_sweep's device counts
 SCALE_CHUNK = 4096       # bench.py _scale_drain_impl's chunk
 CPU_MESH_D = 8           # 11c: the reference's tier-1 mesh size
@@ -3824,10 +3838,23 @@ def mesh_drains(mods, card, flat):
             if sorted(per) != list(range(MESH_D)) or launches[name] == 0:
                 fail(f"mesh {profile}: {name} did not launch on every "
                      f"shard ({per})")
-            shapes = cap_sh if name == "capacity_fit" else inc_sh
-            if not any(sh[1] == n_local for sh in shapes):
-                fail(f"mesh {profile}: no {name} launch at the per-shard "
-                     f"width {n_local}")
+        # every launch of the drain, the strict tails included, runs on
+        # one shard's nodes: no step assembles the node axis
+        wide = [sh for sh in cap_sh + inc_sh if sh[1] != n_local]
+        if wide:
+            fail(f"mesh {profile}: launches at node widths other than the "
+                 f"per-shard {n_local}: {wide}")
+        tails = (cnt["engine.wave_tail_dispatch"],
+                 cnt["engine.tail_round_dispatch"])
+        log(f"mesh drain {profile}: every launch at the per-shard width "
+            f"{n_local}; strict tails {tails[0]} (as conflict rounds "
+            f"{tails[1]}, {cnt['engine.tail_rounds']} rounds; "
+            f"{cnt['engine.affinity_strict_tail']} tail rows); wall "
+            f"{wall:.3f} s beside the unsharded drain's "
+            f"{flat[('wall', profile)]:.3f} s (phase 6) and the gathered "
+            f"tails' D = 4 wall {GATHERED_TAILS_WALL[profile]} s [{card}]")
+        if profile == "mixed_affinity" and not all(tails):
+            fail(f"mesh {profile}: no strict tail ran ({tails})")
         for k, v in spy.check(f"mesh {profile}").items():
             err[k] = max(err[k], v)
         for k, v in launches.items():
@@ -3905,6 +3932,77 @@ def scale_drain(mods, n_devices, spy):
             "placements_sha256": digest.hexdigest()}, launches
 
 
+def classic_round(mods, n_nodes, n_pods, device=None, mesh=None,
+                  spy=None):
+    """One classic round, SchedulingEngine.schedule(mode="wave") of a
+    mixed_affinity batch on a fresh cache (on `mesh` when given): the
+    round the daemon runs, whose strict rows (the pack-into-one-zone
+    classes) take the seeded scan. Returns (placements, RR counter,
+    strict rows, wall, launches)."""
+    import torch
+    (hollow, _api, _S, kernels, COUNTERS, _m, cache_mod,
+     SchedulingEngine, _san) = mods
+    cache = cache_mod.SchedulerCache()
+    for nd in hollow.hollow_nodes(n_nodes):
+        cache.add_node(nd)
+    eng = SchedulingEngine(cache, device=device, mesh=mesh)
+    pods = hollow.mixed_affinity_pods(n_pods, seed=14)
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    with spy if spy is not None else contextlib.nullcontext():
+        res = eng.schedule(pods, mode="wave")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    strict = int(COUNTERS.snapshot().get("engine.classic_strict_rows",
+                                         (0, 0.0))[0])
+    return ({r.pod.name: r.node_name for r in res}, eng.rr.counter, strict,
+            wall, dict(kernels.LAUNCHES))
+
+
+def mesh_round_check(mods, card):
+    """11c's classic round: SchedulingEngine.schedule with strict rows on
+    a D = 8 mesh at 512 x 3,000, on the card and on the CPU, each equal to
+    the unsharded CPU round; on the card every launch at the per-shard
+    width 64."""
+    kernels, mesh_mod = mods[3], mods[5]
+    n_nodes, n_pods = CHECK_SHAPE
+    want = classic_round(mods, n_nodes, n_pods, device="cpu")
+    n_local = n_nodes // CPU_MESH_D
+    for tag, dev, mesh in (
+            ("card", None, mesh_mod.make_mesh(CPU_MESH_D)),
+            ("CPU", "cpu", mesh_mod.make_mesh(CPU_MESH_D, device="cpu"))):
+        spy = OperandSpy(kernels) if dev is None else None
+        got = classic_round(mods, n_nodes, n_pods, device=dev, mesh=mesh,
+                            spy=spy)
+        diff = sum(got[0][k] != v for k, v in want[0].items())
+        if diff or got[1:3] != want[1:3]:
+            fail(f"classic round D = {CPU_MESH_D} on the {tag}: {diff} "
+                 f"placements differ from the unsharded CPU round (RR, "
+                 f"strict rows {got[1:3]} vs {want[1:3]})")
+        if got[2] == 0:
+            fail("classic round: no strict row ran")
+        line = (f"classic round D = {CPU_MESH_D} mixed_affinity {n_nodes} x "
+                f"{n_pods} on the {tag}: == the unsharded CPU round, "
+                f"{got[2]} strict rows, RR counter {got[1]}, wall "
+                f"{got[3]:.3f} s (unsharded CPU {want[3]:.3f} s)")
+        if spy is not None:
+            cap_sh, inc_sh = spy.shapes()
+            wide = [sh for sh in cap_sh + inc_sh if sh[1] != n_local]
+            if wide or not cap_sh or not inc_sh:
+                fail(f"classic round D = {CPU_MESH_D} on the card: launch "
+                     f"shapes {cap_sh} / {inc_sh}, want every node width "
+                     f"{n_local}")
+            spy.check(f"classic round D = {CPU_MESH_D}")
+            line += (f", launches {got[4]}, every one at the per-shard "
+                     f"width {n_local} [{card}]")
+        log(line)
+
+
 def the_mesh(mods, card, flat):
     """Phase 11: the node-axis mesh and the upload sanitizer on the card.
     Returns (launches of 11a and 11b, max abs err per kernel)."""
@@ -3969,6 +4067,8 @@ def the_mesh(mods, card, flat):
                  f"placements differ from the unsharded CPU run")
         log(f"mesh D = {CPU_MESH_D} mixed_affinity 512 x 3000 on the {tag}: "
             f"== the unsharded CPU run, wall {wall:.3f} s")
+    # 11c: the classic round's strict rows per shard, card == CPU, D = 8
+    mesh_round_check(mods, card)
     # 11d: GRAFT_SANITIZE=1
     old = os.environ.get("GRAFT_SANITIZE")
     os.environ["GRAFT_SANITIZE"] = "1"

@@ -32,7 +32,9 @@ With a mesh (parallel/mesh), every node-indexed tensor the engine owns —
 the snapshot sync, the wave encodings' topology views, the committed-
 occupancy seed — is uploaded SHARDED over the mesh's devices and stays
 resident between waves (dynamic arrays re-upload only the shards owning
-dirty rows), and the wave loop runs its two-stage SPMD path.
+dirty rows), and the wave loop and the strict tails (the seeded scan,
+the conflict rounds and their occupancy seeds) run their two-stage SPMD
+paths.
 
 The reference overlaps device and host through JAX's asynchronous
 dispatch. Here the wave loop (one host check per wave) runs on a worker
@@ -84,7 +86,7 @@ from kubernetes_tpu_torch.ops.oracle_ext import (
     _own_terms,
     term_matches_pod,
 )
-from kubernetes_tpu_torch.ops.predicates import bucket, int_matmul
+from kubernetes_tpu_torch.ops.predicates import bucket
 from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.classes import ClassBatch, pod_class_key
@@ -1341,8 +1343,9 @@ class SchedulingEngine:
                         batch, adata, cls_arr, nodes, state, pc_fast, pf,
                         aff_arrays, aff_mode, kernel_priorities, weights)
                 else:
+                    # the live rows only: a padding row fits nothing
                     sel_d, fc_d, _, rr_d = gather_place_batch(
-                        cls_arr, tensor_from_numpy(pc_fast, dev), nodes,
+                        cls_arr, tensor_from_numpy(pc_fast[:pf], dev), nodes,
                         state,
                         torch.tensor(self.rr.counter & U32_MASK,
                                      dtype=torch.int64, device=dev),
@@ -1470,8 +1473,9 @@ class SchedulingEngine:
         if len(strict_pos):
             sp_n = len(strict_pos)
             COUNTERS.inc("engine.classic_strict_rows", sp_n)
-            pcs = np.full(bucket(sp_n), batch.num_classes, dtype=np.int32)
-            pcs[:sp_n] = pc_fast[strict_pos]
+            # the live rows only: a padding row fits nothing, so it ticks
+            # no counter and commits nothing
+            pcs = np.ascontiguousarray(pc_fast[strict_pos])
             aff_init = None
             if aff_arrays is not None:
                 c_dim = aff_arrays["m_aff"].shape[0]
@@ -1480,14 +1484,15 @@ class SchedulingEngine:
                 for j in wave_pos:
                     if selected[j] >= 0:
                         comm_np[pc_fast[j], selected[j]] += 1
-                committed0 = tensor_from_numpy(comm_np, dev)
-                # per-domain occupancy [C, L]: the contraction runs over
-                # nodes, so each sum is at most the pods the cluster holds
-                # (< 2^24) and int_matmul is exact here
-                commdom0 = int_matmul(committed0,
-                                      mesh_mod.full(nodes["labels"]).T)
-                comm_cnt0 = committed0.sum(dim=1, dtype=I32)
-                aff_init = (commdom0, committed0, comm_cnt0)
+                # the wave's per-node occupancy, sharded like the wave
+                # loop's carry on a mesh; the scan derives the per-domain
+                # seed from it (batch.seed_occupancy: per shard, then one
+                # combine)
+                aff_init = (None, sanitize.upload_copied(
+                    comm_np, dev, None if self.mesh is None
+                    else mesh_mod.Placement(self.mesh,
+                                            mesh_mod.committed_spec())),
+                    None)
             with timed_span("engine.strict_scan"):
                 sel_s, fc_s, _, rr_d = gather_place_batch(
                     cls_arr, tensor_from_numpy(pcs, dev), nodes, state_cur,
@@ -1496,8 +1501,8 @@ class SchedulingEngine:
                     aff_init=aff_init)
                 # strict-tail result fetch (the classic wave mode is
                 # synchronous: the caller consumes placements immediately)
-                selected[strict_pos] = sel_s.cpu().numpy()[:sp_n]
-                fit_counts[strict_pos] = fc_s.cpu().numpy()[:sp_n]
+                selected[strict_pos] = sel_s.cpu().numpy()
+                fit_counts[strict_pos] = fc_s.cpu().numpy()
                 rr = int(rr_d)
         self.last_wave_stats = stats
         return selected, fit_counts, rr
@@ -2564,22 +2569,13 @@ class SchedulingEngine:
         tail_prios = self._kernel_priorities()
         if enc.adata is not None and (enc.fits_on or enc.prio_on):
             aff_arrays = enc.aff_tail_dev
-            # under a mesh the tail runs on the assembled node axis
-            # (tail_rounds_loop / gather_place_batch docstrings), so its
-            # seed is assembled too
-            committed0 = mesh_mod.full(handle.committed_out).to(I32) \
-                if handle.committed_out is not None else torch.zeros(
-                    (enc.c_pad, int(handle.nodes["alloc"].shape[0])),
-                    dtype=I32, device=dev)
-            # project the wave's per-node occupancy onto the tail's domain
-            # columns: commdom[c, j] = committed @ labels_aff[:, j].
-            # int_matmul is exact: each sum counts class-c pods in one
-            # domain, at most the pods the cluster holds (nodes x allowed
-            # pods: 550,000 at 5,000 x 110) < 2^24
-            commdom0 = int_matmul(committed0,
-                                  mesh_mod.full(aff_arrays["labels_aff"]).T)
-            aff_init = (commdom0, committed0,
-                        committed0.sum(dim=1, dtype=I32))
+            # the wave's per-node occupancy (sharded on axis 1 under a
+            # mesh) seeds the tail: the tail projects it onto its domain
+            # columns, commdom[c, j] = committed @ labels_aff[:, j], on
+            # each shard's rows and combines the partials
+            # (batch.seed_occupancy); no wave commit means a zero seed
+            if handle.committed_out is not None:
+                aff_init = (None, handle.committed_out, None)
             aff_mode = (enc.fits_on, enc.prio_on, False)
             if enc.prio_on:
                 tail_prios = tuple(
@@ -2606,14 +2602,14 @@ class SchedulingEngine:
             COUNTERS.inc("engine.tail_rounds", int(packed_th[2 * p_t + 1]))
             return int(packed_th[2 * p_t]) & U32_MASK
         # per-pod scan (small tails, and GRAFT_TAIL_ROUNDS=0): classic
-        # sequential semantics
+        # sequential semantics, over the live rows only
         with timed_span("pipeline.tail"):
             sel_s, fc_s, _st, rr_d = gather_place_batch(
-                enc.cls_arr, pcs_dev, handle.nodes, handle.state_out, ctr,
-                tail_prios, aff=aff_arrays, aff_mode=aff_mode,
-                aff_init=aff_init)
-            sel[tail_idx] = sel_s.cpu().numpy()[:n_tail]
-            fc[tail_idx] = fc_s.cpu().numpy()[:n_tail]
+                enc.cls_arr, pcs_dev[:n_tail], handle.nodes,
+                handle.state_out, ctr, tail_prios, aff=aff_arrays,
+                aff_mode=aff_mode, aff_init=aff_init)
+            sel[tail_idx] = sel_s.cpu().numpy()
+            fc[tail_idx] = fc_s.cpu().numpy()
             return int(rr_d)
 
     def _fence(self, handle: WaveHandle, sel: np.ndarray,

@@ -29,15 +29,14 @@ check per wave or round. Inputs are CLASS-level arrays; fits/scores are
 
 Node-axis mesh: every cross-node-axis operation of the wave body — row
 reductions, the winner tie selection, per-row gathers, commit scatters —
-goes through a column vtable. _GlobalCol is the whole-axis form, the ops
-exactly as the unsharded body writes them; _ShardCol is the per-shard
-form inside waves_loop's SPMD path (parallel/mesh.run_spmd), a TWO-STAGE
-reduce: local work over the shard's N/D rows, then a small cross-shard
-combine. No step gathers a full-N tensor to one device; the only
-cross-shard payloads are the [D, C] tie counts and the [C] / [P] combines.
-frozen_affinity_scores and precompute run per shard too; the strict
-tails (tail_rounds_loop, and engine/batch.py's scan) assemble the node
-axis on the mesh's first device instead (see tail_rounds_loop).
+goes through a column vtable (engine/batch: _GlobalCol, the whole-axis
+form, the ops exactly as the unsharded body writes them; _ShardCol, the
+per-shard form inside an SPMD program, parallel/mesh.run_spmd), a
+TWO-STAGE reduce: local work over the shard's N/D rows, then a small
+cross-shard combine. No step gathers a full-N tensor to one device; the
+only cross-shard payloads are the [D, C] tie counts and the [C] / [P]
+combines. waves_loop, tail_rounds_loop, frozen_affinity_scores and
+precompute all run per shard, as does engine/batch.py's scan.
 
 Integer parity notes: the RR counter is uint32 in the reference; the port
 carries it as an int64 tensor in [0, 2^32) and reads it as int32 where the
@@ -55,11 +54,14 @@ import torch
 from kubernetes_tpu_torch.api.types import MAX_PRIORITY
 from kubernetes_tpu_torch.convert import tensor_from_numpy
 from kubernetes_tpu_torch.engine.batch import (
-    NodeState,
     U32_MASK,
+    NodeState,
+    _GlobalCol,
+    _ShardCol,
     check_affinity_priorities,
     counter_as_i32,
     gather_place_batch,
+    seed_occupancy,
 )
 from kubernetes_tpu_torch.ops import affinity as aff_ops
 from kubernetes_tpu_torch.ops import kernels
@@ -71,126 +73,6 @@ from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 Arrays = Dict[str, torch.Tensor]
 
 I32 = torch.int32
-_BIG = 2 ** 31 - 1
-
-
-class _GlobalCol:
-    """Whole-node-axis column ops — exactly the unsharded wave body's ops
-    (the bit-identity anchor of the sharded path)."""
-
-    def __init__(self, n_global: int):
-        self.n_global = n_global   # GLOBAL node-id sentinel bound
-        self.n_local = n_global    # scatter width (== global here)
-
-    def row_sum(self, x):
-        return x.sum(dim=1, dtype=I32)
-
-    def row_max(self, x, keepdim=False):
-        return x.amax(dim=1, keepdim=keepdim)
-
-    def first_fit(self, fits):
-        """Index of each class's first fitting node."""
-        return fits.to(torch.uint8).argmax(dim=1).to(I32)
-
-    def tie_select(self, ties, pod_class, kz):
-        """Node index of the kz-th tie (ascending node order) of each pod's
-        class — the RR fan-out lookup."""
-        c, n = ties.shape
-        idx_n = torch.arange(n, dtype=I32, device=ties.device)
-        rank = torch.cumsum(ties.to(I32), dim=1, dtype=I32) - 1
-        cols = torch.where(ties, rank, n).long()
-        tiemat = torch.zeros((c, n + 1), dtype=I32, device=ties.device)
-        tiemat.scatter_(1, cols, idx_n.expand(c, n).contiguous())
-        return tiemat[pod_class, kz.long()]
-
-    def take_rows(self, arr, idx):
-        """arr[idx] for node-axis-0 tensors, idx = global node ids >= 0."""
-        return arr[idx]
-
-    def take2(self, arr, rows, cols):
-        """arr[rows, cols] for [C, N] tensors, cols = global node ids."""
-        return arr[rows, cols]
-
-    def to_local(self, ids):
-        """Scatter ids: global node id, or -1 -> the drop sentinel."""
-        return torch.where(ids < 0, self.n_global, ids)
-
-
-class _ShardCol:
-    """Per-shard column ops, legal only inside mesh.run_spmd: shard d owns
-    global rows [d*Nl, (d+1)*Nl). Reductions are local, then a combine
-    over the shards; the tie lookup resolves ownership from a gathered
-    [D, C] tie-count table; gathers/scatters translate global ids to local
-    rows and drop the rest, so each commit row is written by exactly ONE
-    shard. Integer combines wrap in int32 like the reference's psum."""
-
-    def __init__(self, group, d: int, n_global: int, n_local: int):
-        self.group = group
-        self.d = d
-        self.n_global = n_global
-        self.n_local = n_local
-        self.off = d * n_local
-
-    def _combine(self, x, how):
-        return self.group.exchange(self.d, x, mesh_mod.COMBINES[how])
-
-    def psum(self, x):
-        return self._combine(x, "sum")
-
-    def pmax(self, x):
-        return self._combine(x, "max")
-
-    def pmin(self, x):
-        return self._combine(x, "min")
-
-    def row_sum(self, x):
-        return self.psum(x.sum(dim=1, dtype=I32))
-
-    def row_max(self, x, keepdim=False):
-        m = self.pmax(x.amax(dim=1))
-        return m[:, None] if keepdim else m
-
-    def first_fit(self, fits):
-        first = self.off + fits.to(torch.uint8).argmax(dim=1).to(I32)
-        return self.pmin(torch.where(fits.any(dim=1), first, _BIG))
-
-    def tie_select(self, ties, pod_class, kz):
-        c, nl = ties.shape
-        pcl = pod_class.long()
-        m_l = ties.sum(dim=1, dtype=I32)                    # [C] local
-        m_all = self._combine(m_l, "stack")                 # [D, C]
-        prefix = torch.cumsum(m_all, dim=0, dtype=I32) - m_all  # exclusive
-        my_prefix = prefix[self.d]                          # [C]
-        rank = torch.cumsum(ties.to(I32), dim=1, dtype=I32) - 1
-        cols = torch.where(ties, rank, nl).long()
-        idx_n = self.off + torch.arange(nl, dtype=I32, device=ties.device)
-        tiemat = torch.zeros((c, nl + 1), dtype=I32, device=ties.device)
-        tiemat.scatter_(1, cols, idx_n.expand(c, nl).contiguous())
-        lr = kz - my_prefix[pcl]                            # local rank
-        owned = (lr >= 0) & (lr < m_l[pcl])
-        cand = torch.where(owned, tiemat[pcl, lr.clamp(0, nl - 1).long()],
-                           0)
-        return self.psum(cand)                              # [P] combine
-
-    def take_rows(self, arr, idx):
-        nl = arr.shape[0]
-        loc = idx - self.off
-        ok = (loc >= 0) & (loc < nl)
-        vals = arr[loc.clamp(0, nl - 1)]
-        mask = ok.reshape(ok.shape + (1,) * (arr.dim() - 1))
-        return self.psum(torch.where(mask, vals, 0))
-
-    def take2(self, arr, rows, cols):
-        nl = arr.shape[1]
-        loc = cols - self.off
-        ok = (loc >= 0) & (loc < nl)
-        vals = arr[rows, loc.clamp(0, nl - 1)]
-        return self.psum(torch.where(ok, vals, 0))
-
-    def to_local(self, ids):
-        loc = ids - self.off
-        return torch.where((ids >= 0) & (loc >= 0) & (loc < self.n_local),
-                           loc, self.n_local)
 
 
 def _dynamic_fits(cls: Arrays, nodes: Arrays, state: NodeState,
@@ -741,7 +623,6 @@ def _frozen_scores(cls, nodes, state, aff, weights, col) -> torch.Tensor:
     return extra
 
 
-@mesh_mod.on_first_device(state_at=1)
 def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
                      pod_class: torch.Tensor, counter: torch.Tensor,
                      priorities: Tuple[Tuple[str, int], ...],
@@ -769,11 +650,14 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
 
     The reference runs this as one lax.while_loop; here it is a Python
     loop with one host check (``active.any()``) per round. Spread scoring
-    is not modeled (the harvest tail never runs it).
+    is not modeled (the harvest tail never runs it). `aff_init` =
+    (commdom, committed, comm_cnt) seeds the occupancy, with commdom and
+    comm_cnt derivable from committed (batch.seed_occupancy).
 
-    Mesh-placed inputs: a LAYOUT departure from the reference, which runs
-    the tail on the sharded operands. Here the rounds run unsharded on the
-    mesh's first device (mesh.on_first_device).
+    Mesh-placed inputs run the rounds once per shard (_tail_rounds_spmd),
+    as the reference's sharded loop does: the wave-style selection takes
+    its _ShardCol forms, the commits land on the shards owning the nodes,
+    and the state comes back sharded on axis 0.
 
     Returns (packed, final NodeState) with packed = int32 [selected(P),
     fit_count(P), counter, rounds_used]."""
@@ -782,22 +666,83 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
         raise ValueError("tail_rounds_loop does not model spread scoring "
                          "(the harvest tail runs with spread off)")
     check_affinity_priorities(priorities, aff, None)
+    mesh = mesh_mod.mesh_of(cls, nodes, state, aff, aff_init, pre)
+    if mesh is not None:
+        return _tail_rounds_spmd(cls, nodes, state, pod_class, counter,
+                                 priorities, aff, aff_mode, aff_init, pre,
+                                 mesh)
+    if pre is None:
+        pre = precompute(cls, nodes, priorities)
+    return _tail_rounds_inner(cls, nodes, state, pod_class, counter,
+                              priorities, aff, aff_mode, aff_init, pre,
+                              _GlobalCol(nodes["alloc"].shape[0]))
+
+
+def _tail_rounds_spmd(cls, nodes, state, pod_class, counter, priorities,
+                      aff, aff_mode, aff_init, pre, mesh):
+    """tail_rounds_loop on a mesh, built like _waves_loop_spmd: node-axis
+    operands placed by the shared spec tables, pod-side ones replicated,
+    _tail_rounds_inner once per shard. Returns shard 0's packed result
+    (built from combined values only, so every shard's is the same) and
+    the state sharded on axis 0."""
+    n_global = int(nodes["alloc"].shape[0])
+    n_local = n_global // mesh.size
+    cls = mesh_mod.shard_classes(cls, mesh)
+    nodes = mesh_mod.shard_nodes(nodes, mesh)
+    state = mesh_mod.place_tree(state, mesh, 0)
+    if pre is not None:
+        pre = mesh_mod.place_tree(pre, mesh, 1)
+    if aff is not None:
+        aff = mesh_mod.shard_affinity(aff, mesh)
+    if aff_init is not None:
+        commdom, committed, comm_cnt = aff_init
+        aff_init = (commdom, mesh_mod.place(committed, mesh,
+                                            mesh_mod.committed_spec()),
+                    comm_cnt)
+
+    def shard(d, group):
+        def loc(t):
+            return mesh_mod.local_tree(t, d, mesh)
+        cls_d = mesh_mod.local_classes(cls, d, mesh, n_local)
+        nodes_d = loc(nodes)
+        pre_d = loc(pre) if pre is not None \
+            else precompute(cls_d, nodes_d, priorities)
+        return _tail_rounds_inner(
+            cls_d, nodes_d, loc(state), loc(pod_class), loc(counter),
+            priorities, loc(aff), aff_mode, loc(aff_init), pre_d,
+            _ShardCol(group, d, n_global, n_local))
+
+    outs = mesh_mod.run_spmd(mesh, shard)
+    state = NodeState(*(mesh_mod.ShardedTensor(mesh, [o[1][i] for o in outs],
+                                               0)
+                        for i in range(len(NodeState._fields))))
+    return outs[0][0], state
+
+
+def _tail_rounds_inner(cls, nodes, state, pod_class, counter, priorities,
+                       aff, aff_mode, aff_init, pre, col):
+    """The rounds proper, shared by the single-device path and every shard
+    of the SPMD path (the `col` vtable is the only difference)."""
+    fits_on, prio_on, _spread_on = aff_mode
     any_aff = aff is not None and (fits_on or prio_on)
     P = pod_class.shape[0]
-    N = nodes["alloc"].shape[0]
     C = cls["req"].shape[0]
     dev = pod_class.device
     pcl = pod_class.long()
     iota = torch.arange(P, dtype=torch.int64, device=dev)
-    if pre is None:
-        pre = precompute(cls, nodes, priorities)
     w_ip = sum(w for nm, w in priorities
                if nm == "InterPodAffinityPriority") if prio_on else 0
     if any_aff:
         labels = aff["labels_aff"] if "labels_aff" in aff \
             else nodes["labels"]
         pre_aff = aff_ops.precompute_static(aff, labels)
-        l_dim = labels.shape[1]
+        if aff_init is not None:
+            commdom, _committed, comm_cnt = seed_occupancy(aff_init, labels,
+                                                           col)
+        else:
+            commdom = torch.zeros((C, labels.shape[1]), dtype=I32,
+                                  device=dev)
+            comm_cnt = torch.zeros(C, dtype=I32, device=dev)
         # anti-coupled pool: classes in ANY required anti relation, as
         # matching target or term owner — their commits can shrink a
         # same-round mask, so the pool shares one commit quota
@@ -806,17 +751,7 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
             | m_anti_b.any(dim=1).any(dim=0)
         boot_candidate = aff["aff_active"] & ~aff["aff_has_static"]
         m_aff = aff["m_aff"].to(I32)
-    else:
-        labels = torch.zeros((N, 1), dtype=torch.int8, device=dev)
-        l_dim = 1
-    if aff_init is not None:
-        commdom, committed, comm_cnt = (t.to(I32) for t in aff_init)
-    else:
-        commdom = torch.zeros((C, l_dim), dtype=I32, device=dev)
-        committed = torch.zeros((C, N), dtype=I32, device=dev)
-        comm_cnt = torch.zeros(C, dtype=I32, device=dev)
     special_cls = _special_classes(cls)
-    col = _GlobalCol(N)
     active = torch.ones(P, dtype=torch.bool, device=dev)
     fsel = torch.full((P,), -1, dtype=I32, device=dev)
     ffc = torch.zeros(P, dtype=I32, device=dev)
@@ -834,7 +769,8 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
         if prio_on:
             cnt = aff_ops.step_prio_counts_all(aff, pre_aff, commdom,
                                                labels)
-            scores_c = scores_c + w_ip * aff_ops.interpod_score(cnt, fits_c)
+            scores_c = scores_c + w_ip * aff_ops.interpod_score(cnt, fits_c,
+                                                                col)
         # ---- wave-style selection and conflict resolution ---------------
         masked, ties, fc, sel, new_counter = _pick(fits_c, scores_c,
                                                    pod_class, active,
@@ -872,16 +808,15 @@ def tail_rounds_loop(cls: Arrays, nodes: Arrays, state: NodeState,
         # ---- commit (batched AssumePod, dropped pods stay active) -------
         state = _commit(cls, nodes, state, s_sel, s_class, acc_s, special,
                         col)
-        # occupancy carry: committed pods become visible to the NEXT
-        # round's exact mask
         gain_p = accepted.to(I32)
-        commdom = commdom.index_add(
-            0, pcl, labels[sel.clamp(min=0).long()].to(I32)
-            * gain_p[:, None])
-        committed = committed.index_put(
-            (pcl[accepted], sel[accepted].long()),
-            torch.ones_like(sel[accepted]), accumulate=True)
-        comm_cnt = comm_cnt.index_add(0, pcl, gain_p)
+        if any_aff:
+            # occupancy carry: committed pods become visible to the NEXT
+            # round's exact mask; each node's domain row comes from the
+            # shard owning it
+            rows = col.take_rows(labels, sel.clamp(min=0).long())
+            commdom = commdom.index_add(0, pcl,
+                                        rows.to(I32) * gain_p[:, None])
+            comm_cnt = comm_cnt.index_add(0, pcl, gain_p)
         # ---- retire: placed pods always; fit_count==0 pods only once a
         # round commits nothing (an allow-side commit may still widen
         # their mask) — which is also the loop's natural exit
@@ -929,12 +864,8 @@ def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
         stats["stragglers"] = n_strag
     if n_strag:
         idx = np.nonzero(act_h)[0]
-        if bool(mesh_mod.full(cls["impossible"])[-1]):
-            pad_class = cls["req"].shape[0] - 1  # inert padding class row
-            pc = np.full(preds.bucket(n_strag), pad_class, dtype=np.int32)
-        else:  # unpadded class arrays: no inert row to map to
-            pc = np.empty(n_strag, dtype=np.int32)
-        pc[:n_strag] = pod_class[idx]
+        # the stragglers alone: the scan steps only live rows
+        pc = np.asarray(pod_class, dtype=np.int32)[idx]
         # the affinity class data rides along so priorities holding
         # SelectorSpread/InterPodAffinity pass place_batch's guard when
         # extra_score is None (fits-only affinity batches)
@@ -942,7 +873,7 @@ def place_waves(cls: Arrays, nodes: Arrays, state: NodeState,
             cls, tensor_from_numpy(pc, dev), nodes, state,
             torch.tensor(counter_h, dtype=torch.int64, device=dev),
             priorities, aff=aff, aff_mode=aff_mode, extra_score=extra_score)
-        final_sel[idx] = sel.cpu().numpy()[:n_strag]
-        final_fc[idx] = fcs.cpu().numpy()[:n_strag]
+        final_sel[idx] = sel.cpu().numpy()
+        final_fc[idx] = fcs.cpu().numpy()
         counter_h = int(ctr)
     return final_sel, final_fc, state, counter_h

@@ -629,11 +629,32 @@ def step_prio_counts_all(aff: Arrays, pre: Arrays, commdom: torch.Tensor,
     return counts + hits[c_dim * t_dim:]
 
 
-def _across(col, how: str, x: torch.Tensor) -> torch.Tensor:
-    """`x` combined across a mesh's shards by `how` ("psum", "pmax",
-    "pmin") when `col` is a shard's column vtable (engine/waves._ShardCol);
-    `x` itself on one device (col None)."""
-    return x if col is None else getattr(col, how)(x)
+def _combined(col, parts):
+    """`parts` [(how, tensor)] combined across a mesh's shards by their
+    `how` ("sum", "max", "min") in one exchange when `col` is a shard's
+    column vtable (engine/batch._ShardCol); the tensors themselves on one
+    device (col None)."""
+    return [t for _, t in parts] if col is None else col.combine(parts)
+
+
+def interpod_parts(counts: torch.Tensor, fits: torch.Tensor):
+    """The node-axis extremes interpod_score normalizes by, as combine
+    parts: the maximum and the minimum count over the filtered set."""
+    return [("max", torch.where(fits, counts, -(2 ** 31 - 1)).amax(
+                dim=-1, keepdim=True)),
+            ("min", torch.where(fits, counts, 2 ** 31 - 1).amin(
+                dim=-1, keepdim=True))]
+
+
+def interpod_from(counts: torch.Tensor, stats) -> torch.Tensor:
+    """interpod_score from the combined interpod_parts."""
+    masked_max, masked_min = stats
+    mx = masked_max.clamp(min=0)
+    mn = masked_min.clamp(max=0)
+    rng = mx - mn
+    return torch.where(rng > 0,
+                       (MAX_PRIORITY * (counts - mn)) // rng.clamp(min=1),
+                       0).to(I32)
 
 
 def interpod_score(counts: torch.Tensor, fits: torch.Tensor,
@@ -641,20 +662,10 @@ def interpod_score(counts: torch.Tensor, fits: torch.Tensor,
     """0..10 normalization over the filtered set (interpod_affinity.go:224-
     239): max clamped >= 0, min clamped <= 0, integer floor division.
     Shape-generic: [..., N] with the node axis last. With `col` (a shard's
-    column vtable, engine/waves._ShardCol) the node axis is one shard's
+    column vtable, engine/batch._ShardCol) the node axis is one shard's
     and the extremes combine across the shards."""
-    masked_max = torch.where(fits, counts, -(2 ** 31 - 1)).amax(
-        dim=-1, keepdim=True)
-    masked_min = torch.where(fits, counts, 2 ** 31 - 1).amin(
-        dim=-1, keepdim=True)
-    masked_max = _across(col, "pmax", masked_max)
-    masked_min = _across(col, "pmin", masked_min)
-    mx = masked_max.clamp(min=0)
-    mn = masked_min.clamp(max=0)
-    rng = mx - mn
-    return torch.where(rng > 0,
-                       (MAX_PRIORITY * (counts - mn)) // rng.clamp(min=1),
-                       0).to(I32)
+    return interpod_from(counts, _combined(col,
+                                           interpod_parts(counts, fits)))
 
 
 def step_spread_counts(aff: Arrays, c: int, committed: torch.Tensor
@@ -672,28 +683,30 @@ SPREAD_NODE_COUNT_CAP = (1 << 11) - 1
 SPREAD_ZONE_COUNT_CAP = (1 << 15) - 1
 
 
-def spread_score(aff: Arrays, has_sel: torch.Tensor, counts: torch.Tensor,
-                 fits: torch.Tensor, col=None) -> torch.Tensor:
-    """selector_spreading.go:134-185 with the zone blend as the reference
-    package defines it — the exact rational floor
-
-        (10(M-c)*Mz + 20(Mz-zc)*M) // (3*M*Mz)
-
-    in pure int32. Shape-generic: counts/fits [..., N], has_sel [...].
-    With `col` (a shard's column vtable) the node axis is one shard's: the
-    node maximum and the per-zone sums over nodes combine across the
-    shards."""
+def spread_parts(aff: Arrays, counts: torch.Tensor, fits: torch.Tensor):
+    """The node-axis statistics spread_score needs, as combine parts:
+    (the filtered, capped counts, [the node maximum, the per-zone count
+    sums, whether a filtered node has a zone, the per-zone filtered-node
+    sums])."""
     counts = torch.where(fits, counts, 0).clamp(max=SPREAD_NODE_COUNT_CAP)
-    max_node = _across(col, "pmax", counts.amax(dim=-1, keepdim=True))
     zmat = aff["Z"].to(I32)                                    # [N, ZN]
-    zc = _across(col, "psum", int_matmul(counts, zmat.T)).clamp(
-        max=SPREAD_ZONE_COUNT_CAP)
+    fz = fits & aff["node_has_zone"]
+    return counts, [("max", counts.amax(dim=-1, keepdim=True)),
+                    ("sum", int_matmul(counts, zmat.T)),
+                    ("max", fz.any(dim=-1, keepdim=True).to(I32)),
+                    ("sum", int_matmul(fz.to(I32), zmat.T))]
+
+
+def spread_from(aff: Arrays, has_sel: torch.Tensor, counts: torch.Tensor,
+                stats) -> torch.Tensor:
+    """spread_score from spread_parts' counts and its combined parts."""
+    max_node, zc, any_zone, zone_fits = stats
+    zc = zc.clamp(max=SPREAD_ZONE_COUNT_CAP)
+    zmat = aff["Z"].to(I32)                                    # [N, ZN]
     node_zone = aff["node_has_zone"]                           # [N]
     has_sel = has_sel[..., None]
-    have_zones = (_across(col, "pmax", (fits & node_zone).any(
-        dim=-1, keepdim=True).to(I32)) > 0) & has_sel
-    zone_seen = _across(col, "psum", int_matmul(
-        (fits & node_zone).to(I32), zmat.T)) > 0
+    have_zones = (any_zone > 0) & has_sel
+    zone_seen = zone_fits > 0
     max_zone = torch.where(zone_seen, zc, 0).amax(dim=-1, keepdim=True)
     node_zc = int_matmul(zc, zmat)                             # own-zone sum
     ten = MAX_PRIORITY
@@ -707,3 +720,18 @@ def spread_score(aff: Arrays, has_sel: torch.Tensor, counts: torch.Tensor,
     blended = (r1n * zd + 2 * zn * r1d) // (3 * r1d * zd)
     use_blend = have_zones & node_zone
     return torch.where(use_blend, blended, fscore).to(I32)
+
+
+def spread_score(aff: Arrays, has_sel: torch.Tensor, counts: torch.Tensor,
+                 fits: torch.Tensor, col=None) -> torch.Tensor:
+    """selector_spreading.go:134-185 with the zone blend as the reference
+    package defines it — the exact rational floor
+
+        (10(M-c)*Mz + 20(Mz-zc)*M) // (3*M*Mz)
+
+    in pure int32. Shape-generic: counts/fits [..., N], has_sel [...].
+    With `col` (a shard's column vtable) the node axis is one shard's: the
+    node maximum and the per-zone sums over nodes combine across the
+    shards."""
+    counts, parts = spread_parts(aff, counts, fits)
+    return spread_from(aff, has_sel, counts, _combined(col, parts))

@@ -15,9 +15,12 @@ shard (``run_spmd``), each running the same function on its own shard;
 the cross-shard steps (sums, maxima, minima, gathers) meet in a
 ``ShardGroup``: every shard deposits its small tensor, one combine runs in
 shard order 0..D-1 on the mesh's first device, and each shard receives
-the result on its own device. A shard that raises aborts the group, so
-the others fail at once, and every wait has a timeout, so a lost shard
-cannot hang the program.
+the result on its own device. The shard threads take turns on the host:
+shard d runs until it deposits, then hands the turn to shard d+1. They
+share the interpreter lock anyway, and D threads contending for it on
+every small op would convoy (several times the work's own host time).
+A shard that raises aborts the group, so the others fail at once, and
+every wait has a timeout, so a lost shard cannot hang the program.
 
 Streams: each shard runs on the stream the calling thread had current on
 the shard's device. Shards that share a device (a mesh of D shards on one
@@ -243,17 +246,6 @@ def _map_tree(fn, tree):
     return tree
 
 
-def full(x):
-    """A plain tensor: a ShardedTensor assembled on its mesh's first
-    device, anything else as given."""
-    return x.full() if isinstance(x, ShardedTensor) else x
-
-
-def full_tree(tree):
-    """`full` over a dict / tuple / NodeState of tensors."""
-    return _map_tree(full, tree)
-
-
 def _fresh(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A new contiguous tensor on `device` holding `t` (never a view)."""
     out = torch.empty(t.shape, dtype=t.dtype, device=device)
@@ -399,8 +391,6 @@ def map_shards(mesh: Mesh, fn, axis: Optional[int]):
 
 
 # ------------------------------------------------------------ entry points
-# How an op entry meets mesh-placed operands is decided here alone; the op
-# bodies stay single-device.
 
 
 def per_shard(axis: int):
@@ -425,27 +415,6 @@ def per_shard(axis: int):
     return deco
 
 
-def on_first_device(state_at: int):
-    """Decorator for an entry that takes mesh-placed operands UNSHARDED on
-    the mesh's first device: a layout departure from the reference, which
-    runs it on the sharded operands (ROADMAP §1, "Shard the strict
-    tails"). Every operand is assembled there (full_tree), `fn` runs as on
-    one device, and the NodeState at ``result[state_at]`` is sharded again
-    on axis 0; the placements are the same. Plain operands call `fn` as
-    is."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def entry(*args, **kw):
-            mesh = mesh_of(args, kw)
-            if mesh is None:
-                return fn(*args, **kw)
-            out = list(fn(*full_tree(args), **full_tree(kw)))
-            out[state_at] = place_tree(out[state_at], mesh, 0)
-            return tuple(out)
-        return entry
-    return deco
-
-
 # ------------------------------------------------------------------- SPMD
 
 
@@ -462,10 +431,15 @@ class ShardGroup:
         self.mesh = mesh
         self.streams = streams
         self.timeout = timeout
-        self._cv = threading.Condition()
+        lock = threading.Lock()
+        self._cv = threading.Condition(lock)
+        # one condition per shard on the group's lock: a turn wakes only
+        # the shard it goes to
+        self._wake = [threading.Condition(lock) for _ in range(mesh.size)]
         self._slots: List = [None] * mesh.size
         self._arrived = 0
         self._gen = 0
+        self._turn = 0          # the shard whose host work runs now
         self._result = None
         self._error: Optional[BaseException] = None
 
@@ -473,7 +447,41 @@ class ShardGroup:
         with self._cv:
             if self._error is None:
                 self._error = exc
-            self._cv.notify_all()
+            self._wake_all_locked()
+
+    def _wake_all_locked(self) -> None:
+        for c in self._wake:
+            c.notify_all()
+
+    def _wait_locked(self, d: int, ready) -> None:
+        """Wait until `ready()` holds; raise on a failure elsewhere or
+        past the timeout."""
+        deadline = time.monotonic() + self.timeout
+        while not ready() and self._error is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self._error = TimeoutError(
+                    f"shard {d} waited {self.timeout:.0f} s at a "
+                    "rendezvous")
+                self._wake_all_locked()
+                raise self._error
+            self._wake[d].wait(left)
+        if not ready():
+            raise ShardAborted("another shard failed") from self._error
+
+    def _pass_turn_locked(self, d: int) -> None:
+        self._turn = (d + 1) % self.mesh.size
+        self._wake[self._turn].notify()
+
+    def start(self, d: int) -> None:
+        """Block until it is shard d's turn to run."""
+        with self._cv:
+            self._wait_locked(d, lambda: self._turn == d)
+
+    def finish(self, d: int) -> None:
+        """Shard d's program ended: the next shard takes the turn."""
+        with self._cv:
+            self._pass_turn_locked(d)
 
     def exchange(self, d: int, x: torch.Tensor, combine) -> torch.Tensor:
         """Deposit shard d's `x`; returns `combine([x_0, ..., x_{D-1}])`
@@ -495,26 +503,14 @@ class ShardGroup:
                     self._result = self._combine_locked(combine)
                 except BaseException as e:
                     self._error = e
-                    self._cv.notify_all()
+                    self._wake_all_locked()
                     raise
                 self._slots = [None] * self.mesh.size
                 self._arrived = 0
                 self._gen += 1
-                self._cv.notify_all()
-            else:
-                deadline = time.monotonic() + self.timeout
-                while self._gen == gen and self._error is None:
-                    left = deadline - time.monotonic()
-                    if left <= 0:
-                        self._error = TimeoutError(
-                            f"shard {d} waited {self.timeout:.0f} s at a "
-                            "rendezvous")
-                        self._cv.notify_all()
-                        raise self._error
-                    self._cv.wait(left)
-                if self._gen == gen:
-                    raise ShardAborted("another shard failed") \
-                        from self._error
+            self._pass_turn_locked(d)
+            self._wait_locked(d, lambda: self._gen != gen
+                              and self._turn == d)
             r, ev_r = self._result
         return self._deliver(d, r, ev_r)
 
@@ -581,12 +577,14 @@ def run_spmd(mesh: Mesh, fn) -> list:
 
     def body(d):
         try:
+            group.start(d)
             if cuda:
                 with torch.cuda.device(mesh.devices[d]), \
                         torch.cuda.stream(streams[d]):
                     out[d] = fn(d, group)
             else:
                 out[d] = fn(d, group)
+            group.finish(d)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             err[d] = e
             group.abort(e)

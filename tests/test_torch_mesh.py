@@ -12,9 +12,13 @@ padding), a shard that raises mid-loop (fails fast, never hangs), a
 shard that never arrives (the rendezvous times out), the fast lane's
 reads of mesh-resident nodes, and a relist that keeps the mesh."""
 
+import contextlib
+import functools
+import math
 import random
 import threading
 import time
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -234,7 +238,7 @@ def _dryrun_world(types, n_nodes, n_pending):
     return nodes, existing, workloads, pending
 
 
-def _affinity_inputs(nodes, existing, workloads, pending):
+def _affinity_inputs(nodes, existing, workloads, pending, node_pad=N_DEV):
     """SchedulingEngine.schedule's array construction, on the reference:
     (class arrays, pod classes, node arrays, AffinityData)."""
     from kubernetes_tpu.ops.affinity import (
@@ -243,7 +247,7 @@ def _affinity_inputs(nodes, existing, workloads, pending):
         intern_topology_pairs,
     )
     infos = node_info_map(nodes, existing)
-    snap = ClusterSnapshot(node_pad=N_DEV)
+    snap = ClusterSnapshot(node_pad=node_pad)
     snap.refresh(infos)
     all_pairs, aff_pairs = collect_pod_pairs(infos)
     intern_topology_pairs(snap, pending, aff_pairs)
@@ -645,3 +649,463 @@ def test_combine_locked_keeps_placements(d, monkeypatch):
     pr, _ = _drain("ref", jmesh.make_mesh(d))
     assert p0 == pd == pr and all(p0.values())
     assert held and all(held)
+
+
+# ------------------------------------------- the strict tails, per shard
+
+TAIL_D = [2, 3, 4, 8]
+TAIL_PAD = 24            # lcm(8, 3): every TAIL_D splits the node axis
+
+
+@contextlib.contextmanager
+def _tails_on_shards(widths):
+    """Armed around a strict tail: any assembly of a sharded node axis
+    (ShardedTensor.full, under __array__, an off-axis index_select and a
+    re-placement alike) raises, and the node width of every capacity and
+    incidence kernel call is appended to `widths`."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    def gather(self):
+        raise AssertionError("a strict tail gathered the node axis")
+
+    def spy(name, width_of):
+        real = getattr(kernels, name)
+
+        def call(*a, **kw):
+            widths.append((name, int(width_of(*a))))
+            return real(*a, **kw)
+        return call
+    with mock.patch.object(tmesh.ShardedTensor, "full", gather), \
+            mock.patch.object(kernels, "capacity_fit", spy(
+                "capacity_fit", lambda req, alloc, *r: alloc.shape[0])), \
+            mock.patch.object(kernels, "capacity_headroom", spy(
+                "capacity_headroom", lambda req, z, alloc, *r:
+                alloc.shape[0])), \
+            mock.patch.object(kernels, "incidence_matmul", spy(
+                "incidence_matmul", lambda a, b_t: b_t.shape[0])):
+        yield
+
+
+def _per_shard_widths(widths, n_local, need=("capacity_fit",)):
+    assert widths, "the tail launched no kernel"
+    assert {w for _, w in widths} == {n_local}, sorted(set(widths))
+    for name in need:
+        assert any(k == name for k, _ in widths), (name, widths[:4])
+
+
+def _sharded_state(st, d, axis=0):
+    for t in st:
+        assert isinstance(t, tmesh.ShardedTensor) and t.axis == axis
+        assert len(t.shards) == d
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_world(seed):
+    """(pod arrays, node arrays) of a random cluster padded to TAIL_PAD,
+    the reference's sharded scan on its 8-device mesh, and the port's
+    unsharded scan."""
+    rng = random.Random(seed)
+    nodes = random_nodes(rng, 40)
+    names = [n.name for n in nodes]
+    pods = [random_pod(rng, i, names) for i in range(40)]
+    snap = ClusterSnapshot(node_pad=TAIL_PAD)
+    snap.refresh(node_info_map(nodes, []))
+    parr = jpreds.pod_arrays(PodBatch(pods, snap))
+    narr = jpreds.node_arrays(snap)
+    jm = jmesh.make_mesh(N_DEV)
+    with jm:
+        nsh = jmesh.shard_nodes(narr, jm)
+        ref = jbatch.place_batch(jmesh.replicate(parr, jm), nsh,
+                                 jbatch.node_state(nsh), jnp.uint32(7), PRIO)
+    flat = tbatch.place_batch(_t(parr), _t(narr),
+                              tbatch.node_state(_t(narr)), _ctr(7), PRIO)
+    return parr, narr, ref, flat
+
+
+@pytest.mark.parametrize("d", TAIL_D)
+def test_place_batch_runs_per_shard(d):
+    """The seeded strict scan on a D-shard mesh: no step assembles the
+    node axis, every capacity launch is at N/D, and placements, fit
+    counts, the counter and the final state equal the reference's sharded
+    scan and the port's unsharded one; the state comes back sharded on
+    axis 0."""
+    parr, narr, ref, flat = _scan_world(0)
+    n = narr["alloc"].shape[0]
+    tn = tmesh.shard_nodes(_t(narr), _tmesh(d))
+    widths = []
+    with _tails_on_shards(widths):
+        sel, fc, st, rr = tbatch.place_batch(
+            _t(parr), tn, tbatch.node_state(tn), _ctr(7), PRIO)
+    _per_shard_widths(widths, n // d)
+    _eq(sel, ref[0])
+    _eq(fc, ref[1])
+    assert int(rr) == int(ref[3]) == int(flat[3])
+    _eq_state(st, ref[2])
+    _eq(sel, flat[0])
+    _sharded_state(st, d)
+    assert (np.asarray(sel) >= 0).sum() > 20
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_world(seed):
+    """An affinity world padded to TAIL_PAD with a nonzero occupancy seed:
+    (inputs, the seed's committed [C, N], the reference's scan on its
+    8-device mesh with the seed as (commdom, committed, comm_cnt), the
+    port's unsharded scan deriving commdom and comm_cnt from committed)."""
+    cls_arr, pc, narr, adata = _affinity_inputs(*_affinity_cluster(seed),
+                                                node_pad=TAIL_PAD)
+    aff = adata.device_arrays()
+    n = narr["alloc"].shape[0]
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, 2, (cls_arr["req"].shape[0], n)).astype(np.int32)
+    comm[int(pc.max()):] = 0
+    comm[:, ~np.asarray(narr["valid"], bool)] = 0
+    commdom = (comm.astype(np.int64) @ narr["labels"].astype(np.int64)
+               ).astype(np.int32)
+    cnt = comm.sum(axis=1).astype(np.int32)
+    mode = (True, True, True)
+    jm = jmesh.make_mesh(N_DEV)
+    with jm:
+        nsh = jmesh.shard_nodes(narr, jm)
+        ref = jbatch.gather_place_batch(
+            jmesh.replicate(cls_arr, jm), jnp.asarray(pc), nsh,
+            jbatch.node_state(nsh), jnp.uint32(5), jprio.DEFAULT_PRIORITIES,
+            aff=jmesh.shard_affinity(aff, jm), aff_mode=mode,
+            aff_init=tuple(jnp.asarray(a) for a in (commdom, comm, cnt)))
+    flat = tbatch.gather_place_batch(
+        _t(cls_arr), torch.from_numpy(pc), _t(narr),
+        tbatch.node_state(_t(narr)), _ctr(5), jprio.DEFAULT_PRIORITIES,
+        aff=_t(aff), aff_mode=mode,
+        aff_init=(None, torch.from_numpy(comm), None))
+    return (cls_arr, pc, narr, aff), comm, ref, flat
+
+
+@pytest.mark.parametrize("d", TAIL_D)
+def test_gather_place_batch_with_affinity_runs_per_shard(d):
+    """gather_place_batch with fits, interpod and spread on and an
+    occupancy seed: the class precompute, the step statistics, the tie
+    ranks and the seed's contraction over nodes all run per shard (every
+    capacity and incidence launch at N/D, nothing assembled), equal to the
+    reference's sharded scan and the port's unsharded one."""
+    (cls_arr, pc, narr, aff), comm, ref, flat = _gather_world(0)
+    n = narr["alloc"].shape[0]
+    mesh = _tmesh(d)
+    tn = tmesh.shard_nodes(_t(narr), mesh)
+    widths = []
+    with _tails_on_shards(widths):
+        got = tbatch.gather_place_batch(
+            _t(cls_arr), torch.from_numpy(pc), tn, tbatch.node_state(tn),
+            _ctr(5), jprio.DEFAULT_PRIORITIES,
+            aff=tmesh.shard_affinity(_t(aff), mesh), aff_mode=(True,) * 3,
+            aff_init=(None, tmesh.place(torch.from_numpy(comm), mesh,
+                                        tmesh.committed_spec()), None))
+    _per_shard_widths(widths, n // d, ("capacity_fit", "incidence_matmul"))
+    _assert_gather_equal(ref, got, flat)
+    assert int(got[3]) == int(flat[3])
+    _eq_state(got[2], flat[2])
+    _sharded_state(got[2], d)
+    assert (np.asarray(got[0])[:24] >= 0).sum() > 12
+
+
+@functools.lru_cache(maxsize=None)
+def _rounds_world(seed):
+    """The conflict-round tail's inputs over the same affinity world, the
+    reference's tail on its 8-device mesh and the port's unsharded one."""
+    (cls_arr, pc, narr, aff), comm, _r, _f = _gather_world(seed)
+    mode = (True, True, False)
+    prios = tuple(p for p in jprio.DEFAULT_PRIORITIES
+                  if p[0] != "SelectorSpreadPriority")
+    commdom = (comm.astype(np.int64) @ narr["labels"].astype(np.int64)
+               ).astype(np.int32)
+    cnt = comm.sum(axis=1).astype(np.int32)
+    jm = jmesh.make_mesh(N_DEV)
+    with jm:
+        nsh = jmesh.shard_nodes(narr, jm)
+        ref = jwaves.tail_rounds_loop(
+            jmesh.replicate(cls_arr, jm), nsh, jbatch.node_state(nsh),
+            jnp.asarray(pc), jnp.uint32(9), prios,
+            aff=jmesh.shard_affinity(aff, jm), aff_mode=mode,
+            aff_init=tuple(jnp.asarray(a) for a in (commdom, comm, cnt)))
+    flat = twaves.tail_rounds_loop(
+        _t(cls_arr), _t(narr), tbatch.node_state(_t(narr)),
+        torch.from_numpy(pc), _ctr(9), prios, aff=_t(aff), aff_mode=mode,
+        aff_init=(None, torch.from_numpy(comm), None))
+    return (cls_arr, pc, narr, aff), comm, prios, ref, flat
+
+
+@pytest.mark.parametrize("d", TAIL_D)
+def test_tail_rounds_loop_with_affinity_runs_per_shard(d):
+    """The conflict-round tail with the required mask and interpod scoring
+    on: every round's capacity step and incidence product run per shard,
+    the commits land on the owning shards, and the packed result (every
+    placement, fit count, the counter, the round count) and the final
+    state equal the reference's sharded tail and the port's unsharded
+    one."""
+    (cls_arr, pc, narr, aff), comm, prios, ref, flat = _rounds_world(0)
+    n = narr["alloc"].shape[0]
+    mesh = _tmesh(d)
+    tn = tmesh.shard_nodes(_t(narr), mesh)
+    widths = []
+    with _tails_on_shards(widths):
+        packed, st = twaves.tail_rounds_loop(
+            _t(cls_arr), tn, tbatch.node_state(tn), torch.from_numpy(pc),
+            _ctr(9), prios, aff=tmesh.shard_affinity(_t(aff), mesh),
+            aff_mode=(True, True, False),
+            aff_init=(None, tmesh.place(torch.from_numpy(comm), mesh,
+                                        tmesh.committed_spec()), None))
+    _per_shard_widths(widths, n // d,
+                      ("capacity_headroom", "incidence_matmul"))
+    _eq(packed, ref[0])
+    _eq_state(st, ref[1])
+    np.testing.assert_array_equal(packed.numpy(), flat[0].numpy())
+    _eq_state(st, flat[1])
+    _sharded_state(st, d)
+    assert int(packed[-1]) > 1
+
+
+def _hollow(side):
+    if side == "port":
+        from kubernetes_tpu_torch.engine import scheduler_engine as eng
+        from kubernetes_tpu_torch.models import hollow
+        from kubernetes_tpu_torch.state.cache import SchedulerCache
+        from kubernetes_tpu_torch.utils.trace import COUNTERS
+    else:
+        from kubernetes_tpu.engine import scheduler_engine as eng
+        from kubernetes_tpu.models import hollow
+        from kubernetes_tpu.state.cache import SchedulerCache
+        from kubernetes_tpu.utils.trace import COUNTERS
+    return eng, hollow, SchedulerCache, COUNTERS
+
+
+def _classic_round(side, mesh):
+    """One classic wave-mode round of a mixed_affinity batch at 48 nodes
+    with 60 pods already bound: (placements, fit counts, counter, strict
+    rows counted)."""
+    eng_mod, hollow, SchedulerCache, COUNTERS = _hollow(side)
+    cache = SchedulerCache()
+    nodes = hollow.hollow_nodes(48)
+    for nd in nodes:
+        cache.add_node(nd)
+    pods = hollow.mixed_affinity_pods(260)
+    for i, p in enumerate(pods[:60]):
+        p.node_name = nodes[(5 * i) % 48].name
+        cache.add_pod(p)
+    kw = {"device": "cpu"} if side == "port" else {}
+    eng = eng_mod.SchedulingEngine(cache, mesh=mesh, **kw)
+    COUNTERS.reset()
+    res = eng.schedule(pods[60:], mode="wave")
+    strict = COUNTERS.snapshot().get("engine.classic_strict_rows", (0,))[0]
+    return ([r.node_name for r in res], [r.fit_count for r in res],
+            eng.rr.counter, strict)
+
+
+@functools.lru_cache(maxsize=None)
+def _classic_ref():
+    return (_classic_round("ref", jmesh.make_mesh(N_DEV)),
+            _classic_round("port", None))
+
+
+@pytest.mark.parametrize("d", TAIL_D)
+def test_classic_round_strict_rows_run_per_shard(d):
+    """SchedulingEngine.schedule in wave mode on a D-shard mesh: the
+    classic round's strict rows (the pack-into-one-zone classes) take the
+    seeded scan per shard — the seed built from the wave's sharded
+    per-node occupancy — with nothing assembled and every launch at N/D,
+    and the round equals the reference's on its 8-device mesh and the
+    port's unsharded round."""
+    from kubernetes_tpu_torch.engine import scheduler_engine as teng
+    from kubernetes_tpu_torch.engine import waves as tw
+    ref, flat = _classic_ref()
+    widths = []
+    seeds = []
+    real = teng.gather_place_batch
+
+    def strict_scan(*a, **kw):
+        seeds.append(kw.get("aff_init"))
+        with _tails_on_shards(widths):
+            return real(*a, **kw)
+    with mock.patch.object(teng, "gather_place_batch", strict_scan), \
+            mock.patch.object(tw, "gather_place_batch", strict_scan):
+        got = _classic_round("port", _tmesh(d))
+    assert got[3] > 0 and seeds, "no strict row ran"
+    n = 48 + (-48) % math.lcm(8, d)
+    _per_shard_widths(widths, n // d)
+    committed = [s[1] for s in seeds if s is not None]
+    assert committed and all(isinstance(c, tmesh.ShardedTensor)
+                             and c.axis == 1 for c in committed)
+    assert got[:3] == ref[:3]
+    assert got == flat
+
+
+def _pipelined(side, mesh, tail_rounds):
+    """A pipelined mixed_affinity drain at 48 nodes x 400 pods in chunks
+    of 128 whose harvests run a strict tail: the conflict rounds
+    (tail_rounds_min 1) or the per-pod scan. Returns (placements, tail
+    dispatches, round dispatches)."""
+    eng_mod, hollow, _c, COUNTERS = _hollow(side)
+    api, s = _mesh_sched(side, 48, mesh)
+    s.engine.tail_rounds = tail_rounds
+    s.engine.tail_rounds_min = 1
+    for p in hollow.mixed_affinity_pods(400):
+        api.create("Pod", p)
+    COUNTERS.reset()
+    s.run_until_drained(max_batch=128)
+    snap = COUNTERS.snapshot()
+    if side == "port":
+        s.engine.close()
+    return ({p.name: p.node_name for p in api.list("Pod")[0]},
+            snap.get("engine.wave_tail_dispatch", (0,))[0],
+            snap.get("engine.tail_round_dispatch", (0,))[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _pipelined_ref(tail_rounds):
+    return (_pipelined("ref", jmesh.make_mesh(N_DEV), tail_rounds),
+            _pipelined("port", None, tail_rounds))
+
+
+@pytest.mark.parametrize("route", ["rounds", "scan"])
+@pytest.mark.parametrize("d", TAIL_D)
+def test_pipelined_strict_tail_runs_per_shard(d, route, monkeypatch):
+    """A pipelined drain on a D-shard mesh whose harvests finish a strict
+    tail, through the conflict rounds and through the per-pod scan
+    (GRAFT_TAIL_ROUNDS=0): the tail's seed is the wave's sharded per-node
+    occupancy, nothing is assembled, every launch is at N/D, and the
+    placements equal the reference's drain on its 8-device mesh and the
+    port's unsharded drain."""
+    from kubernetes_tpu_torch.engine import scheduler_engine as teng
+    monkeypatch.setenv("GRAFT_TAIL_ROUNDS", "1" if route == "rounds" else "0")
+    ref, flat = _pipelined_ref(route == "rounds")
+    widths = []
+    seeds = []
+    real = teng.SchedulingEngine._harvest_tail
+
+    def harvest_tail(self, handle, *a, **kw):
+        seeds.append(handle.committed_out)
+        with _tails_on_shards(widths):
+            return real(self, handle, *a, **kw)
+    with mock.patch.object(teng.SchedulingEngine, "_harvest_tail",
+                           harvest_tail):
+        got = _pipelined("port", _tmesh(d), route == "rounds")
+    assert got[1] > 0, "no harvest ran a strict tail"
+    assert (got[2] > 0) == (route == "rounds")
+    n = 48 + (-48) % math.lcm(8, d)
+    _per_shard_widths(widths, n // d, ("capacity_fit", "incidence_matmul")
+                      if route == "scan" else
+                      ("capacity_headroom", "incidence_matmul"))
+    assert all(isinstance(c, tmesh.ShardedTensor) and c.axis == 1
+               for c in seeds if c is not None)
+    assert got[0] == ref[0] == flat[0]
+    assert got[1:] == ref[1:] == flat[1:]
+    assert all(got[0].values())
+
+
+def _strict_round(side, mesh):
+    """SchedulingEngine.schedule in strict mode (every pod through the
+    scan) of 40 mixed_affinity pods at 48 nodes: (placements, fit counts,
+    counter)."""
+    eng_mod, hollow, SchedulerCache, _C = _hollow(side)
+    cache = SchedulerCache()
+    for nd in hollow.hollow_nodes(48):
+        cache.add_node(nd)
+    kw = {"device": "cpu"} if side == "port" else {}
+    eng = eng_mod.SchedulingEngine(cache, mesh=mesh, **kw)
+    res = eng.schedule(hollow.mixed_affinity_pods(40), mode="strict")
+    return ([r.node_name for r in res], [r.fit_count for r in res],
+            eng.rr.counter)
+
+
+def _stragglers(side, mesh):
+    """waves.place_waves cut at one wave, so the strict scan finishes the
+    stragglers: (placements, fit counts, counter)."""
+    snap, pods = _cluster(6, n_nodes=20, n_pods=90)
+    cbatch = ClassBatch(pods, snap)
+    cls = jpreds.pod_arrays_padded(cbatch.reps_batch,
+                                   jpreds.bucket(cbatch.num_classes + 1))
+    narr = jpreds.node_arrays(snap)
+    stats = {}
+    if side == "ref" and mesh is None:
+        out = jwaves.place_waves(cls, narr, jbatch.node_state(narr),
+                                 cbatch.pod_class, 3, PRIO, 1)
+    elif side == "ref":
+        with mesh:
+            nsh = jmesh.shard_nodes(narr, mesh)
+            out = jwaves.place_waves(jmesh.replicate(cls, mesh), nsh,
+                                     jbatch.node_state(nsh),
+                                     cbatch.pod_class, 3, PRIO, 1)
+    else:
+        tn = _t(narr) if mesh is None else tmesh.shard_nodes(_t(narr), mesh)
+        out = twaves.place_waves(_t(cls), tn, tbatch.node_state(tn),
+                                 cbatch.pod_class, 3, PRIO, 1, stats=stats)
+        assert stats["stragglers"] > 0
+    return (np.asarray(out[0]).tolist(), np.asarray(out[1]).tolist(),
+            int(out[3]))
+
+
+_CALLERS = {
+    "classic-strict": lambda side, mesh: _strict_round(side, mesh),
+    "classic-strict-rows": lambda side, mesh: _classic_round(side, mesh)[:3],
+    "pipelined-scan-tail": lambda side, mesh: _pipelined(side, mesh, False),
+    "stragglers": _stragglers,
+}
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["flat", "mesh8"])
+@pytest.mark.parametrize("caller", sorted(_CALLERS))
+def test_scan_steps_only_live_rows(caller, sharded, monkeypatch):
+    """Each of the scan's four callers (the classic round in strict mode,
+    its wave-mode strict rows, the pipelined drain's per-pod tail and the
+    wave loop's stragglers) hands it the live pods only — no row of the
+    inert padding class — and its result equals the reference's, whose
+    scan steps the padded rows, unsharded and on an 8-shard mesh."""
+    from kubernetes_tpu_torch.engine import scheduler_engine as teng
+    from kubernetes_tpu_torch.engine import waves as tw
+    monkeypatch.setenv("GRAFT_TAIL_ROUNDS", "0")
+    stepped = []
+    real = tbatch.gather_place_batch
+
+    def scan(cls_arr, pc, *a, **kw):
+        pcs = np.asarray(pc)
+        stepped.append(len(pcs))
+        # the inert class is the last class row; a live row never uses it
+        assert (pcs < cls_arr["req"].shape[0] - 1).all(), pcs
+        return real(cls_arr, pc, *a, **kw)
+    monkeypatch.setattr(teng, "gather_place_batch", scan)
+    monkeypatch.setattr(tw, "gather_place_batch", scan)
+    fn = _CALLERS[caller]
+    got = fn("port", _tmesh(N_DEV) if sharded else None)
+    want = fn("ref", jmesh.make_mesh(N_DEV) if sharded else None)
+    assert stepped and all(stepped), "the scan did not run"
+    assert got == want
+
+
+def test_shards_take_turns_under_a_short_switch_interval():
+    """Stress of ShardGroup's turns: 16 shard threads (more than the
+    cores) under a shortened switch interval, 200 exchanges each. Between
+    two exchanges exactly one shard runs, in shard order, so the log of
+    (round, shard) entries is strictly ordered, and every combine is the
+    exact sum; a lost turn or a lost deposit breaks one or the other."""
+    import sys
+    d_count, rounds = 16, 200
+    log = []
+
+    def body(d, group):
+        total = 0
+        for r in range(rounds):
+            log.append((r, d))
+            s = group.exchange(d, torch.tensor([d + r]), tmesh.COMBINES["sum"])
+            total += int(s)
+        return total
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        t0 = time.monotonic()
+        out = tmesh.run_spmd(_tmesh(d_count), body)
+        assert time.monotonic() - t0 < 60
+    finally:
+        sys.setswitchinterval(old)
+    want = sum(sum(d + r for d in range(d_count)) for r in range(rounds))
+    assert out == [want] * d_count
+    assert log == [(r, d) for r in range(rounds) for d in range(d_count)]
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("spmd-shard-")]

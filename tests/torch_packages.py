@@ -35,3 +35,17 @@ class Pkg:
             return self.__dict__["_flat"][name]
         except KeyError:
             raise AttributeError(name) from None
+
+
+def helpers(root):
+    """tests/helpers.py (the seeded random cluster generator) built on
+    package `root`'s own types: the same seeds give the same nodes and
+    pods in either package."""
+    import pathlib
+    import types
+    src = (pathlib.Path(__file__).with_name("helpers.py")).read_text()
+    mod = types.ModuleType(f"tests.helpers[{root}]")
+    exec(compile(src.replace("from kubernetes_tpu.api.types import",
+                             f"from {root}.api.types import"),
+                 mod.__name__, "exec"), mod.__dict__)
+    return mod
