@@ -159,9 +159,10 @@ phase fails. Phases:
      11c: mixed_affinity at 512 x 3,000 with D = 8, on the card and on the
      CPU, equal to phase 6's unsharded CPU run; then a classic round,
      SchedulingEngine.schedule(mode="wave") of a mixed_affinity batch
-     with strict rows (engine.classic_strict_rows > 0) at 512 x 3,000 on
-     D = 8, on the card and on the CPU, each equal to the unsharded CPU
-     round, every card launch at the per-shard width 64. 11d: GRAFT_SANITIZE=1: the
+     with strict rows (engine.classic_strict_rows > 0) at 512 x 709 (128
+     strict rows, cut from 3,000 pods and 510 rows) on D = 8, on the card
+     and on the CPU, each equal to the unsharded CPU round, every card
+     launch at the per-shard width 64. 11d: GRAFT_SANITIZE=1: the
      512 x 3,000 mixed_affinity drain on the card and on a D = 4 mesh,
      equal to the unsanitized run, with the seams' alias checks and seals
      counted; an aliasing upload constructor on a CPU tensor raises;
@@ -301,22 +302,72 @@ phase fails. Phases:
      with 300 replicas scaled to 450 (no HTTP leg) on the card and on the
      CPU: equal placements pod by pod, rollout rounds and status lines,
      and equal `get pods -o wide` text;
- 16. print the per-kernel summary line, then the result line.
+ 16. the always-on arrival stream, bench.py run_arrival's contract on the
+     port (`arrival`, its own harness: pods created at an offered rate by
+     a creator thread in bursts of about 4 ms of the rate while
+     Scheduler.stream()'s ScheduleLoop runs on the card; 64 prime pods
+     bound first and excluded from every number; the gc frozen and off
+     for the window; create->bound joined from the creator's stamps and
+     Scheduler.wave_observer's bind instants; sustained pods/s the median
+     per-interval bind rate over the full buckets inside the offer
+     window, the first dropped as ramp; no shape ladder, as eager torch
+     compiles nothing). 16a: bench.py's headline, 20,000 density pods/s
+     into 5,000 nodes for 3 s, budget 250 ms, quanta 256-16,384; offered
+     and sustained pods/s, create->bound p50 and p99, the backlog at
+     offer end, the quantum's peak, the creator's lag p99 and jitter_ok;
+     then a 1 s window at the same rate with the flight recorder and
+     podtrace armed: every tail exemplar's phases telescope to its span.
+     16b: bench.py measure_churn, 5,000 churn-profile pods/s into 5,000
+     nodes for 4 s (cut from bench's 8 s), a quiet leg and a leg under
+     ChurnInjector's seeded schedule (seed 11, 10% of the nodes killed a
+     minute, flaps, cordons, relabels, evictions) behind FaultyBindApi
+     (0.2% bind failures, 0.1% landed timeouts); the churn_* fields
+     (churned over quiet sustained, the churned p99, ops applied,
+     liveness and fence requeues, degraded steps, enters and exits, the
+     Protean patch rows, encoding rebuilds and label patch rows). 16c:
+     bench.py measure_rolling_update's defaults, 400 replicas replaced by
+     RollingUpdateDriver under surge 40 and unavailability 40 on a
+     diurnal background of 1,500 pods/s (amplitude 0.5, period 3 s) at
+     514 nodes; completion time, replacement create->bound p50 and p99,
+     the surge and unavailability extremes. Gates of every leg: no
+     duplicate bind (observer and store), audit_store_transitions and
+     audit_cache_vs_store clean, every pod in the store bound once the
+     loop settles, no node over its CPU, memory or pods, the churn
+     profile's anti-affinity held; 16c's bounds respected and each
+     replacement bound once; the churn leg's encoding rebuilds within
+     the quiet leg's plus each fault at what 16d's CPU run paid for one
+     of its kind. 16d: tests/test_churn.py's frozen churn trace scaled to
+     512 nodes (P16D_TRACE: groups of about 500 churn-profile pods, one
+     fault a step: kill, respawn, cordon, uncordon, NotReady flap,
+     relabel, the eviction of an anti-affinity pod and of a plain target,
+     a landed bind timeout; two nodes, one holding an anti-affinity pod
+     and one a target, return after an encoding was built while they
+     were dead) on a FakeClock, through the stream and the fixed-chunk
+     pipeline on the card and through the stream on the CPU: equal
+     placements, and at every device sync the resident arrays equal a
+     fresh upload of the snapshot and the affinity tensors their fresh
+     views. Each capacity operand set of 16a-16c at every launch
+     shape is held against the plain version; the incidence kernel is
+     not on this path (the churn profile's anti-affinity is on the
+     hostname, answered per node);
+ 17. print the per-kernel summary line, then the result line.
 
 Phase 1 also logs whether kubernetes_tpu_torch.native loaded
 native/libhostops.so or fell back to numpy (the snapshot's label
 scatter), and whether PyYAML is importable (ktctl needs it only for -o
 yaml, create -f, apply -f and edit; phase 15 uses none of them). Launch
 counts are zeroed just before each main-path run (phases 4, 5, 6, 7,
-8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b, 14a-14d as one run
-and 15b from `ktctl run` to the last ktctl step; in 10a and 10b each
-child process counts its own, and 15a's scheduler child is not counted)
+8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b, 14a-14d as one run,
+15b from `ktctl run` to the last ktctl step, and each stream of 16a-16c
+from its scheduler's start; in 10a and 10b each child process counts its
+own, and 15a's scheduler child is not counted)
 and read just after it; launches made by the comparisons do not count.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -3785,6 +3836,11 @@ GATHERED_TAILS_WALL = {"density": 1.885, "mixed_affinity": 3.861}
 SWEEP_D = (1, 2, 4)      # 11b: bench.py measure_scale_sweep's device counts
 SCALE_CHUNK = 4096       # bench.py _scale_drain_impl's chunk
 CPU_MESH_D = 8           # 11c: the reference's tier-1 mesh size
+# 11c's classic round: 709 mixed_affinity pods at 512 nodes give 128 strict
+# rows, cut from 3,000 pods and 510 strict rows for the run's time (the
+# round at D = 8 took 30.2-33.4 s on the card and 18.8-24.4 s on the CPU,
+# NVIDIA H100 80GB HBM3, 700.00 W)
+P11C_ROUND = (512, 709)
 
 
 def mesh_drains(mods, card, flat):
@@ -3966,11 +4022,11 @@ def classic_round(mods, n_nodes, n_pods, device=None, mesh=None,
 
 def mesh_round_check(mods, card):
     """11c's classic round: SchedulingEngine.schedule with strict rows on
-    a D = 8 mesh at 512 x 3,000, on the card and on the CPU, each equal to
-    the unsharded CPU round; on the card every launch at the per-shard
-    width 64."""
+    a D = 8 mesh at P11C_ROUND (512 x 709, 128 strict rows), on the card
+    and on the CPU, each equal to the unsharded CPU round; on the card
+    every launch at the per-shard width 64."""
     kernels, mesh_mod = mods[3], mods[5]
-    n_nodes, n_pods = CHECK_SHAPE
+    n_nodes, n_pods = P11C_ROUND
     want = classic_round(mods, n_nodes, n_pods, device="cpu")
     n_local = n_nodes // CPU_MESH_D
     for tag, dev, mesh in (
@@ -6069,6 +6125,980 @@ def command_line_on_the_card(mods, card):
     return launches, err
 
 
+# ---------------------------------------------------------------- phase 16
+
+# 16a: bench.py's arrival headline (bench.py:3606-3624): 20,000 pods/s
+# offered into 5,000 density nodes for 3 s, a 250 ms budget, quanta
+# 256-16,384; then one window of P16A_TRACED_S at the same rate with the
+# flight recorder and podtrace armed
+P16A = dict(n_nodes=5000, rate=20000.0, duration_s=3.0, budget_ms=250.0,
+            min_quantum=256, max_quantum=16384, profile="density")
+P16A_TRACED_S = 1.0
+# 16b: bench.py measure_churn as bench's main runs it at the headline
+# (bench.py:3797-3812): the churn profile at min(20,000, 5,000) pods/s, a
+# quiet leg and a leg under the fault schedule of measure_churn's defaults
+# (bench.py:2579-2585). Bench offers max(4, min(10, 40,000 / 5,000)) = 8 s;
+# cut to bench's floor of 4 s for the whole run's time (the run took 678.6
+# s with 8 s on NVIDIA H100 80GB HBM3, 700.00 W)
+P16B = dict(n_nodes=5000, rate=5000.0, duration_s=4.0, budget_ms=250.0,
+            min_quantum=256, max_quantum=16384, profile="churn")
+P16B_CHURN = dict(seed=11, node_churn_per_min=0.10, bind_fail_rate=0.002,
+                  bind_timeout_rate=0.001)
+# 16c: measure_rolling_update's defaults (bench.py:3824-3834); its node
+# count grows to ceil((replicas + surge + 12 s of background + 64) / 36)
+P16C = dict(n_nodes=256, replicas=400, max_surge=40, max_unavailable=40,
+            bg_rate=1500.0, diurnal_amp=0.5, diurnal_period_s=3.0,
+            budget_ms=250.0)
+# 16d: tests/test_churn.py's frozen churn trace (TRACE, _run_trace) scaled
+# from 16 nodes to 512 and from groups of 25-48 pods to groups of about
+# 500 churn-profile pods, one quantum a step; the faults come one at a
+# time, so that the encoding rebuilds a fault of each kind costs can be
+# read off the ops up to the next one (16b's rebuild bound).
+# By step 12 hollow-node-10 holds an anti-affinity pod and hollow-node-1
+# targets but none; "new-class" creates a pod of a shape of its own while
+# both are dead, so that the encoding rebuilds without them; the anti
+# pod's return then rebuilds, and the targets' return patches their
+# node's forbid column.
+# "evict-anti" and "evict-plain" evict the first bound pod of that kind;
+# "timeout" and "timeout-plain" make the bind of the group's first
+# anti-affinity pod, or of its first plain pod labeled like one (a target),
+# land but answer with an error (FaultyBindApi's landed timeout): the pod
+# comes back on the watch as a foreign bind
+P16D_NODES = 512
+P16D_TRACE = (
+    (473, ()),
+    (512, (("kill", "hollow-node-3"),)),
+    (389, (("respawn", "hollow-node-3"),)),
+    (506, (("cordon", "hollow-node-5"),)),
+    (448, (("uncordon", "hollow-node-5"),)),
+    (501, (("flap_down", "hollow-node-9"),)),
+    (467, (("flap_up", "hollow-node-9"),)),
+    (495, (("relabel", "hollow-node-6"),)),
+    (430, (("evict-anti", ""),)),
+    (512, (("evict-plain", ""),)),
+    (477, (("timeout", ""),)),
+    (499, (("timeout-plain", ""),)),
+    (463, (("kill", "hollow-node-10"), ("kill", "hollow-node-1"),
+           ("new-class", ""))),
+    (488, (("respawn", "hollow-node-10"),)),
+    (452, (("respawn", "hollow-node-1"),)),
+)
+P16D_QUANTUM = 512
+P16_COUNTERS = ("engine.aff_patch_rows", "engine.aff_full_rebuilds",
+                "engine.label_patch_rows", "engine.liveness_fence_requeues",
+                "stream.degraded_enter", "stream.degraded_exit",
+                "engine.wave_dispatch", "engine.tail_rounds",
+                "engine.wave_tail_dispatch", "engine.tail_round_dispatch")
+
+
+def stream_mods():
+    """The port's modules phase 16 drives, by name."""
+    import types as pytypes
+    from kubernetes_tpu_torch.engine.scheduler import Scheduler
+    from kubernetes_tpu_torch.models import hollow
+    from kubernetes_tpu_torch.observability import podtrace, recorder, slo
+    from kubernetes_tpu_torch.ops import kernels, predicates
+    from kubernetes_tpu_torch.server import apiserver_lite
+    from kubernetes_tpu_torch.testing import churn
+    from kubernetes_tpu_torch.utils.trace import COUNTERS
+    return pytypes.SimpleNamespace(
+        Scheduler=Scheduler, hollow=hollow, podtrace=podtrace,
+        recorder=recorder, slo=slo, kernels=kernels,
+        predicates=predicates, apiserver_lite=apiserver_lite, churn=churn,
+        COUNTERS=COUNTERS)
+
+
+def interval_series(bind_events, create_log, backlog_samples, interval_s):
+    """bench.py interval_series: binds, offered pods and the backlog per
+    interval of FULL buckets only; the partial remainder after the last
+    full bucket is returned apart as `tail` (binds, offered, backlog,
+    width_s), so sum(intervals) + tail["binds"] is every bind."""
+    offer_end = create_log[-1][0] if create_log else 0.0
+    end = max([t for t, _ in bind_events] + [offer_end]) if bind_events \
+        else offer_end
+    n_full = int(end / interval_s)
+    intervals, offered, backlog = [0] * n_full, [0] * n_full, [0] * n_full
+    tail = {"binds": 0, "offered": 0, "backlog": 0,
+            "width_s": round(end - n_full * interval_s, 6)}
+    for ts, keys in bind_events:
+        b = int(ts / interval_s)
+        if b < n_full:
+            intervals[b] += len(keys)
+        else:
+            tail["binds"] += len(keys)
+    for ts, n in create_log:
+        b = int(ts / interval_s)
+        if b < n_full:
+            offered[b] += n
+        else:
+            tail["offered"] += n
+    for ts, q in backlog_samples:
+        b = int(ts / interval_s)
+        if b < n_full:
+            backlog[b] = q
+        else:
+            tail["backlog"] = q
+    return intervals, offered, backlog, tail
+
+
+def new_stream(m, api, device, **stream_kw):
+    """A started Scheduler over `api` on `device` (None = the card) and
+    its always-on loop (Scheduler.stream(**stream_kw)), with the kernels'
+    launch counts and the span counters set to 0 once the card's queue
+    has drained."""
+    if device != "cpu":
+        import torch
+        torch.cuda.synchronize()
+    m.kernels.reset_launch_counts()
+    m.COUNTERS.reset()
+    sched = m.Scheduler(api, record_events=False, device=device)
+    sched.start()
+    return sched, sched.stream(**stream_kw)
+
+
+@contextlib.contextmanager
+def stream_window(sched, loop, device, stop, threads):
+    """The measured window of a stream: the gc collected, frozen and
+    disabled inside it; on the way out the gc restored, `stop` set, the
+    loop closed, every thread of `threads` (a list the window may still
+    grow) joined, the bind observer dropped and the card's queue
+    drained."""
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.unfreeze()
+        stop.set()
+        loop.close()
+        for th in threads:
+            th.join(timeout=10)
+        sched.wave_observer = None
+    if device != "cpu":
+        import torch
+        torch.cuda.synchronize()
+
+
+def first_binds(bind_events):
+    """The first bind instant of each pod key in wave_observer's
+    (instant, keys) events, and the count of binds past a key's first."""
+    first, dup = {}, 0
+    for ts, keys in bind_events:
+        for k in keys:
+            if k in first:
+                dup += 1
+            else:
+                first[k] = ts
+    return first, dup
+
+
+def arrival(m, n_nodes, rate, duration_s, profile="density",
+            budget_ms=250.0, min_quantum=256, max_quantum=16384,
+            churn_cfg=None, recorder=False, podtrace=False, device=None,
+            spy=None):
+    """bench.py run_arrival on the port: pods of `profile` created at
+    `rate` a second for `duration_s` by a creator thread while the
+    always-on loop (Scheduler.stream()) runs on `device` (None = the
+    card). Before the window 64 prime pods bind, excluded from every
+    number: they prime this scheduler's resident state (the first
+    snapshot, the device upload, the class encoding). bench.py's
+    _warm_stream_shapes compiles an XLA shape ladder first; eager torch
+    compiles nothing, so there is no ladder here. The gc is frozen and
+    disabled for the window. Per pod, create->bound joins the creator's
+    stamps with the bind instants of Scheduler.wave_observer;
+    `sustained_pods_s` is the median bind rate over the full buckets
+    inside the offer window, the first dropped as ramp. The creator
+    (paced_create) sends bursts of at most about 4 ms of the rate; its
+    lag p99 and `creator_jitter_ok` are reported. `churn_cfg` (a
+    ChurnConfig) wraps the store in FaultyBindApi and runs
+    ChurnInjector's seeded schedule beside the stream; `recorder` and
+    `podtrace` arm the flight recorder and the pod tracer with its SLO
+    monitor for the window. Returns bench's fields
+    plus the store (`api`, the one under any fault proxy), the stopped
+    scheduler, counters, launches and the wall."""
+    import threading
+    import numpy as np
+    hollow, churn = m.hollow, m.churn
+    total = int(rate * duration_s)
+    budget_s = budget_ms / 1e3
+    interval_s = min(1.0, max(0.25, round(duration_s / 4.0, 2)))
+    max_burst = max(4, int(rate * 0.004))   # paced_create's burst
+    base = m.apiserver_lite.ApiServerLite(
+        max_log=max(200_000, 3 * (n_nodes + total)))
+    nodes = hollow.hollow_nodes(n_nodes)
+    hollow.load_cluster(base, nodes, [])
+    api, injector = base, None
+    if churn_cfg is not None:
+        api = churn.FaultyBindApi(base, fail_rate=churn_cfg.bind_fail_rate,
+                                  timeout_rate=churn_cfg.bind_timeout_rate,
+                                  seed=churn_cfg.seed)
+        injector = churn.ChurnInjector(api, churn.make_churn_schedule(
+            [n.name for n in nodes], churn_cfg, duration_s))
+    pods = hollow.PROFILES[profile](total)
+    pod_index = {p.key(): i for i, p in enumerate(pods)}
+    seed = m.predicates.bucket(max(min_quantum, min(int(rate * budget_s / 4),
+                                                    max_quantum)))
+    sched, loop = new_stream(m, api, device, budget_s=budget_s,
+                             min_quantum=min_quantum,
+                             max_quantum=max_quantum, chunk=seed)
+    flight, tracer, slo = m.recorder.RECORDER, m.podtrace.TRACER, m.slo.SLO
+    was = (flight.enabled, tracer.enabled, slo.enabled)
+    created = [0]
+    create_ts = np.full(total, -1.0)
+    create_log, bind_events, backlog_samples = [], [], []
+    quantum_peak, last_sample = [0], [0.0]
+    backlog_at_offer_end = [None]
+    agg = {"bind_errors": 0, "fence_requeued": 0, "liveness_requeued": 0,
+           "degraded_steps": 0}
+    stop = threading.Event()
+    threads = []
+    with spy if spy is not None else contextlib.nullcontext():
+        for p in hollow.PROFILES[profile](min(64, min_quantum)):
+            p.name = "prime-" + p.name
+            api.create("Pod", p)
+        loop.drain()
+
+        def stamp(burst, ts):
+            i = created[0]       # paced_create counts the burst after this
+            create_ts[i:i + len(burst)] = ts - t0
+            create_log.append((ts - t0, len(burst)))
+
+        def backlog():
+            inflight = len(loop.inflight.pods) if loop.inflight else 0
+            return len(sched.queue) + inflight
+
+        def note(stats, lp):
+            now = time.monotonic() - t0
+            for k in agg:
+                agg[k] += stats.get(k, 0)
+            quantum_peak[0] = max(quantum_peak[0], lp.quantum)
+            if now - last_sample[0] >= 0.05 or stats["bound"]:
+                backlog_samples.append((now, backlog()))
+                last_sample[0] = now
+            if backlog_at_offer_end[0] is None and created[0] >= total:
+                backlog_at_offer_end[0] = backlog()
+
+        def done(stats, lp):
+            if created[0] >= total and stats["popped"] == 0 \
+                    and lp.settled():
+                return True
+            if time.monotonic() > deadline:
+                fail(f"arrival {profile} {n_nodes} nodes at {rate:g}/s: "
+                     f"incomplete after {deadline - t0:.0f} s, created "
+                     f"{created[0]}/{total}, bound "
+                     f"{sum(len(ks) for _, ks in bind_events)}")
+            return False
+
+        try:
+            with stream_window(sched, loop, device, stop, threads):
+                if recorder:
+                    flight.clear()
+                    flight.enable()
+                else:
+                    flight.disable()
+                if podtrace:
+                    tracer.clear()
+                    tracer.enable()
+                    slo.clear()
+                    slo.enable()
+                else:
+                    tracer.disable()
+                    slo.disable()
+                t0 = time.monotonic()
+                deadline = t0 + max(60.0, duration_s * 20) \
+                    + (120.0 if injector is not None else 0.0)
+                sched.wave_observer = lambda ts, keys: bind_events.append(
+                    (ts - t0, keys))
+                threads.append(threading.Thread(
+                    target=paced_create,
+                    args=(api, pods, rate, t0, created, stamp), daemon=True))
+                threads[0].start()
+                if injector is not None:
+                    threads.append(injector.run_thread(stop, t0=t0))
+                loop.run(done, on_step=note)
+        finally:
+            flight.enabled, tracer.enabled, slo.enabled = was
+    wall = time.monotonic() - t0
+    launches = dict(m.kernels.LAUNCHES)
+    snap = m.COUNTERS.snapshot()
+    counters = {k: snap.get(k, (0, 0.0))[0] for k in P16_COUNTERS}
+    lat = np.full(total, -1.0)
+    first, duplicate_binds = first_binds(bind_events)
+    for k, ts in first.items():
+        i = pod_index.get(k)
+        if i is not None and create_ts[i] >= 0:
+            lat[i] = ts - create_ts[i]
+    bound = int((lat >= 0).sum())
+    lat = lat[lat >= 0]
+    if injector is not None:
+        # store truth: a landed-but-timed-out bind never reached the
+        # observer; it is bound, without a latency sample
+        state = {p.key(): bool(p.node_name) for p in base.list("Pod")[0]}
+        bound = sum(1 for p in pods if state.get(p.key(), True))
+    offer_end = create_log[-1][0] if create_log else 0.0
+    intervals, offered_series, backlog_series, tail_partial = \
+        interval_series(bind_events, create_log, backlog_samples,
+                        interval_s)
+    k_end = int(offer_end / interval_s)
+    steady = intervals[1:k_end] if k_end > 1 else intervals[:max(k_end, 1)]
+    sustained = (sorted(steady)[len(steady) // 2] / interval_s) if steady \
+        else 0.0
+    lags = [ts - n_done / rate for (ts, _), n_done in
+            zip(create_log, np.cumsum([n for _, n in create_log]))]
+    lag_p99_ms = float(np.percentile(lags, 99) * 1e3) if lags else 0.0
+    realized = total / offer_end if offer_end > 0 else 0.0
+    lag_bound_ms = max(2e3 * max_burst / rate, 100.0)
+    out = {
+        "intervals": [int(v) for v in intervals], "interval_s": interval_s,
+        "offered_series": [int(v) for v in offered_series],
+        "backlog_series": [int(v) for v in backlog_series],
+        "tail_partial": tail_partial,
+        "offered_pods_s": float(rate),
+        "offered_realized_pods_s": round(realized, 1),
+        "sustained_pods_s": round(float(sustained), 1),
+        "p50_ms": float(np.percentile(lat, 50) * 1e3) if lat.size else None,
+        "p99_ms": float(np.percentile(lat, 99) * 1e3) if lat.size else None,
+        "bound": int(bound), "unbound": total - int(bound),
+        "backlog_at_offer_end": int(backlog_at_offer_end[0] or 0),
+        "budget_ms": float(budget_ms), "quantum_peak": int(quantum_peak[0]),
+        "creator_max_burst": int(max_burst),
+        "creator_lag_p99_ms": round(lag_p99_ms, 3),
+        "creator_lag_bound_ms": round(lag_bound_ms, 3),
+        "creator_jitter_ok": bool(lag_p99_ms <= lag_bound_ms
+                                  and realized >= 0.95 * rate),
+        "duplicate_binds": int(duplicate_binds), **agg,
+        "counters": counters, "launches": launches,
+        "wall_s": round(wall, 3), "api": base, "sched": sched,
+        "offered": pods}
+    if recorder:
+        out["recorder_events"] = int(flight.stats()["events"])
+        out["recorder_dropped"] = int(flight.stats()["dropped"])
+    if podtrace:
+        out["podtrace"] = tail_exemplars(tracer.snapshot(), m.podtrace)
+        out["slo"] = slo.snapshot()
+    if injector is not None:
+        out.update({
+            "churn_ops_applied": dict(injector.applied),
+            "churn_ops_noop": int(injector.noop),
+            "injected_bind_failures": int(api.injected_failures),
+            "injected_bind_timeouts": int(api.injected_timeouts)})
+    return out
+
+
+def tail_exemplars(psnap, podtrace):
+    """bench.py run_arrival's podtrace report: one exemplar per (wave,
+    phase sequence), the slowest of its group, each with its phase
+    attribution and whether the phases telescope to its create->bound
+    span (`attribution_exact`). The wave is read from the event named
+    podtrace.KIND_NAMES[WAVE_DISPATCHED]; bench.py compares the kind with
+    the upper-case constant name, which no event carries, so its groups
+    ignore the wave."""
+    dispatched = podtrace.KIND_NAMES[podtrace.WAVE_DISPATCHED]
+    exemplars, seen = [], {}
+    for ex in psnap["exemplars"]:
+        ssum = sum(ex["phases_ms"].values())
+        wave = next((e["a"] for e in ex["events"]
+                     if e["kind"] == dispatched), None)
+        sig = (wave, tuple(e["kind"] for e in ex["events"]))
+        if sig in seen:
+            g = seen[sig]
+            g["multiplicity"] += 1
+            g["span_ms_range"][0] = min(g["span_ms_range"][0], ex["span_ms"])
+            g["span_ms_range"][1] = max(g["span_ms_range"][1], ex["span_ms"])
+            continue
+        seen[sig] = row = {
+            "key": ex["key"], "wave": wave,
+            "create_to_bound_ms": ex["span_ms"],
+            "phases_ms": ex["phases_ms"], "phase_sum_ms": round(ssum, 6),
+            "attribution_exact": bool(abs(ssum - ex["span_ms"]) < 1e-3),
+            "events": [e["kind"] for e in ex["events"]],
+            "multiplicity": 1,
+            "span_ms_range": [ex["span_ms"], ex["span_ms"]]}
+        exemplars.append(row)
+    return {"stats": psnap["stats"], "phases": psnap["phases"],
+            "tail_exemplars": exemplars,
+            "tail_exemplars_raw": len(psnap["exemplars"])}
+
+
+def audit_stream(m, api, sched, tag, profile):
+    """The gates of one stream after it settled: every pod in the store
+    bound (the offered ones less any a churn op evicted), no node over
+    its CPU, memory or pod count, no pod bound twice in one life, the
+    store's transitions one bind per pod (audit_store_transitions), the
+    scheduler's cache equal to the store (audit_cache_vs_store), and for
+    the churn profile one anti-affinity pod of an app per host with no
+    other pod of that app beside it. Returns the bound count."""
+    pods = api.list("Pod")[0]
+    nodes = {n.name: n for n in api.list("Node")[0]}
+    unbound = [p.key() for p in pods if not p.node_name]
+    if unbound:
+        fail(f"{tag}: {len(unbound)} pods left unbound, e.g. {unbound[:3]}")
+    used = {}
+    for p in pods:
+        r = p.resource_request()
+        u = used.setdefault(p.node_name, [0, 0, 0])
+        u[0] += r.milli_cpu
+        u[1] += r.memory
+        u[2] += 1
+    for name, u in used.items():
+        nd = nodes.get(name)
+        if nd is not None and (u[0] > nd.allocatable.milli_cpu
+                               or u[1] > nd.allocatable.memory
+                               or u[2] > nd.allowed_pod_number):
+            fail(f"{tag}: node {name} over allocatable: {u}")
+    dups = [k for k, v in store_binds(api).items() if len(v) > 1]
+    trans = m.churn.audit_store_transitions(api)
+    multi = [k for k, c in trans["binds"].items() if c != 1]
+    ghosts = m.churn.audit_cache_vs_store(sched, api)
+    if dups or multi or ghosts:
+        fail(f"{tag}: pods bound twice in one life {dups[:3]}, store "
+             f"transitions {multi[:3]}, cache vs store {ghosts[:3]}")
+    if profile == "churn":
+        anti, labeled = {}, {}
+        for p in pods:
+            key = (p.node_name, p.labels.get("app", ""))
+            labeled[key] = labeled.get(key, 0) + 1
+            if p.affinity is not None \
+                    and p.affinity.pod_anti_affinity is not None:
+                anti[key] = anti.get(key, 0) + 1
+        bad = [k for k, c in anti.items() if c > 1 or labeled[k] > 1]
+        if bad:
+            fail(f"{tag}: anti-affinity broken on {len(bad)} (host, app) "
+                 f"pairs, e.g. {sorted(bad)[:3]}")
+    return len(pods)
+
+
+def report_arrival(tag, r, card):
+    log(f"{tag}: offered {r['offered_pods_s']:g} pods/s (realized "
+        f"{r['offered_realized_pods_s']}), sustained "
+        f"{r['sustained_pods_s']} pods/s, create->bound p50 "
+        f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms, bound "
+        f"{r['bound']}/{r['bound'] + r['unbound']}, backlog at offer end "
+        f"{r['backlog_at_offer_end']}, quantum peak {r['quantum_peak']}, "
+        f"creator lag p99 {r['creator_lag_p99_ms']} ms (bound "
+        f"{r['creator_lag_bound_ms']}), jitter_ok {r['creator_jitter_ok']}, "
+        f"intervals {r['intervals']} of {r['interval_s']} s (tail "
+        f"{r['tail_partial']}), bind errors {r['bind_errors']}, fence "
+        f"requeued {r['fence_requeued']}, liveness requeued "
+        f"{r['liveness_requeued']}, degraded steps {r['degraded_steps']}, "
+        f"counters {r['counters']}, launches {r['launches']}, wall "
+        f"{r['wall_s']} s [{card}]")
+    if not r["creator_jitter_ok"]:
+        log(f"{tag}: the creator fell behind its schedule (jitter_ok "
+            f"False): the rates above are not to be read; the gates hold")
+
+
+def rolling_update(m, cfg, device=None, spy=None):
+    """bench.py measure_rolling_update on the port: `replicas` old-
+    revision web pods bound through Scheduler.stream(), then
+    RollingUpdateDriver replaces them under max_surge and max_unavailable
+    while a diurnal background stream of density pods rides the same
+    loop. No shape ladder (nothing to compile). Returns bench's fields
+    plus counters and launches; fails on a duplicate bind, a replacement
+    bound other than once, a ghost in the cache, or a bound broken."""
+    import threading
+    import numpy as np
+    from kubernetes_tpu_torch.api.types import make_pod
+    hollow, churn = m.hollow, m.churn
+    replicas = cfg["replicas"]
+    bg_cap = int(cfg["bg_rate"] * 12.0)
+    need = replicas + cfg["max_surge"] + bg_cap + 64
+    n_nodes = max(cfg["n_nodes"], -(-need // 36))
+    api = m.apiserver_lite.ApiServerLite(
+        max_log=max(400_000, 6 * (n_nodes + need)))
+    hollow.load_cluster(api, hollow.hollow_nodes(n_nodes), [])
+    sched, loop = new_stream(m, api, device, budget_s=cfg["budget_ms"] / 1e3,
+                             min_quantum=64, max_quantum=256)
+
+    def web_pod(rev, i):
+        return make_pod(f"web-{rev}-{i:05d}", cpu=100, memory=128 << 20,
+                        labels={"app": "web", "rev": rev})
+
+    bind_events = []
+    bg_created = [0]
+    stop = threading.Event()
+    with spy if spy is not None else contextlib.nullcontext():
+        for i in range(replicas):
+            api.create("Pod", web_pod("1", i))
+        loop.drain()
+        old = sum(1 for p in api.list("Pod")[0]
+                  if p.labels.get("rev") == "1" and p.node_name)
+        if old != replicas:
+            fail(f"16c: {old}/{replicas} old-revision pods bound")
+        sched.wave_observer = lambda ts, keys: bind_events.append((ts, keys))
+        driver = churn.RollingUpdateDriver(api, churn.RollingUpdateConfig(
+            replicas=replicas, max_surge=cfg["max_surge"],
+            max_unavailable=cfg["max_unavailable"]),
+            lambda i: web_pod("2", i))
+        rate_fn = churn.diurnal_rate(cfg["bg_rate"], amp=cfg["diurnal_amp"],
+                                     period_s=cfg["diurnal_period_s"])
+        bg_pods = hollow.PROFILES["density"](bg_cap)
+        for p in bg_pods:
+            p.name = "bgload-" + p.name
+        t0 = time.monotonic()
+
+        def bg_creator():
+            due_f, last = 0.0, time.monotonic()
+            while not stop.is_set() and bg_created[0] < len(bg_pods):
+                now = time.monotonic()
+                due_f += rate_fn(now - t0) * (now - last)
+                last = now
+                due = min(int(due_f), len(bg_pods))
+                while bg_created[0] < due:
+                    api.create("Pod", bg_pods[bg_created[0]])
+                    bg_created[0] += 1
+                stop.wait(0.002)
+
+        bg_thread = threading.Thread(target=bg_creator, daemon=True)
+        deadline = t0 + 120.0
+
+        def done(stats, lp):
+            if driver.completed_at is not None:
+                stop.set()
+                if stats["popped"] == 0 and lp.settled() \
+                        and not bg_thread.is_alive():
+                    return True
+            if time.monotonic() > deadline:
+                fail(f"16c: rolling update incomplete after 120 s: "
+                     f"{driver.bounds_report()}")
+            return False
+
+        threads = [bg_thread]
+        with stream_window(sched, loop, device, stop, threads):
+            bg_thread.start()
+            threads.append(driver.run_thread(stop, poll_s=0.005))
+            loop.run(done)
+            loop.drain()
+    launches = dict(m.kernels.LAUNCHES)
+    repl_keys = set(driver.replacement_keys)
+    first, dup = first_binds(bind_events)
+    repl_first = {k: ts for k, ts in first.items() if k in repl_keys}
+    lat = [ts - driver.create_ts[k] for k, ts in repl_first.items()]
+    last_bind = max(repl_first.values(), default=t0)
+    bounds = driver.bounds_report()
+    trans = churn.audit_store_transitions(api)
+    multi = sum(1 for k in repl_keys if trans["binds"].get(k, 0) != 1)
+    ghosts = churn.audit_cache_vs_store(sched, api)
+    if dup or multi or ghosts or not bounds["surge_respected"] \
+            or not bounds["unavailable_respected"] \
+            or bounds["created"] != replicas or bounds["evicted"] != replicas:
+        fail(f"16c: duplicate binds {dup}, replacements bound other than "
+             f"once {multi}, cache vs store {ghosts[:3]}, bounds {bounds}")
+    audit_stream(m, api, sched, "16c", "density")
+    lat_a = np.asarray(lat)
+    return {
+        "nodes": n_nodes,
+        "completion_s": round((driver.completed_at or last_bind)
+                              - driver.started_at, 3),
+        "replacement_p50_ms": round(float(np.percentile(lat_a, 50)) * 1e3,
+                                    3),
+        "replacement_p99_ms": round(float(np.percentile(lat_a, 99)) * 1e3,
+                                    3),
+        "replacements_bound": len(lat), "bounds": bounds,
+        "bg_created": bg_created[0], "duplicate_binds": dup,
+        "launches": launches}
+
+
+class LandedTimeout:
+    """A store proxy whose bulk binds land, except that the bind of each
+    pod named by `arm(key)` answers with an error after it landed: one
+    of FaultyBindApi's landed timeouts, placed on a chosen pod."""
+
+    def __init__(self, api):
+        self._api = api
+        self.armed = set()
+        self.injected = 0
+
+    def __getattr__(self, name):
+        return getattr(self._api, name)
+
+    def arm(self, key):
+        self.armed.add(key)
+
+    def _mark(self, keys, out):
+        out = list(out)
+        for i, k in enumerate(keys):
+            if k in self.armed and out[i] is None:
+                out[i] = "injected: bind timeout"
+                self.injected += 1
+                self.armed.discard(k)
+        return out
+
+    def bind_pods_bulk(self, pods):
+        keys = [p.key() for p in pods]
+        return self._mark(keys, self._api.bind_pods_bulk(pods))
+
+    def bind_many(self, bindings):
+        keys = [f"{b.pod_namespace}/{b.pod_name}" for b in bindings]
+        return self._mark(keys, self._api.bind_many(bindings))
+
+
+def resident_check(eng, dev, width, tag, in_dispatch):
+    """The resident device arrays a sync just left behind (`dev`, before
+    any kernel reads them) equal a fresh upload of a full rewrite of the
+    snapshot: a copy of it with every row rewritten from the cache's
+    NodeInfos as they stand. Dispatch runs on the calling thread and
+    nothing mutates the cache between its refresh and its sync, so these
+    are the infos the sync was made from. In a wave dispatch, which
+    flushes the cached encoding's patches before its sync, that
+    encoding's affinity tensors on the device equal its host views, and
+    those equal the views derived afresh from the snapshot's labels.
+    Returns the arrays compared."""
+    import copy
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.analysis.sanitize import upload_copied
+    from kubernetes_tpu_torch.engine.scheduler_engine import _aff_node_views
+    infos = eng.cache.snapshot_infos()
+    # the copy forgets every row's generation, so that its refresh
+    # rewrites every row from the cache under the same vocabularies
+    snap = eng.snapshot
+    fresh = copy.deepcopy(snap, {id(snap._generations): {}})
+    fresh.refresh(infos, volume_ctx=eng.volume_ctx)
+    n = 0
+    for k, t in sorted(dev.items()):
+        host = fresh.port_bitmap[:, :width] if k == "port_bitmap" \
+            else getattr(fresh, k)
+        want = upload_copied(host, torch.device("cpu"))
+        if t.shape != want.shape or t.dtype != want.dtype \
+                or not torch.equal(t.cpu(), want):
+            fail(f"{tag}: resident {k} != a fresh upload of the snapshot")
+        n += 1
+    enc = eng._wave_enc
+    if in_dispatch and enc is not None and enc.aff_wave_dev is not None:
+        if enc.aff_patch_dirty or enc.labels_gen != snap.labels_gen:
+            fail(f"{tag}: a dispatch synced with its encoding's patches "
+                 f"unflushed or its labels stale")
+        key_node, sfh = _aff_node_views(enc.adata, snap)
+        merged = sfh.astype(np.int32)
+        if enc.foreign_forbid is not None:
+            merged = merged + enc.foreign_forbid
+        merged = np.minimum(merged, 127).astype(np.int8)
+        for k, want in (("key_node", key_node), ("static_forbid", merged)):
+            got = enc.aff_wave_dev[k].cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"{tag}: resident affinity {k} != its fresh view")
+            n += 1
+    return n
+
+
+def watch_resident(eng, tally):
+    """Wrap the engine's host-to-device sync so that every sync is held to
+    resident_check right after it, before the kernels read the tensors,
+    and its wave dispatch so that the check knows it runs inside one.
+    `tally` = [tag, syncs, arrays]: the caller sets the tag per step; the
+    counts accumulate."""
+    sync, dispatch = eng._nodes_on_device, eng.dispatch_waves
+    inside = [False]
+
+    def checked(port_words=1):
+        dev = sync(port_words=port_words)
+        tally[1] += 1
+        tally[2] += resident_check(eng, dev, port_words, tally[0],
+                                   inside[0])
+        return dev
+
+    def dispatching(*args, **kw):
+        inside[0] = True
+        try:
+            return dispatch(*args, **kw)
+        finally:
+            inside[0] = False
+    eng._nodes_on_device = checked
+    eng.dispatch_waves = dispatching
+
+
+def churn_trace(m, device, streaming, clock_cls):
+    """16d: P16D_TRACE through Scheduler.stream() (`streaming`) or the
+    fixed-chunk pipeline, one quantum a step, on a FakeClock: before each
+    step its fault is applied (ChurnInjector for node and eviction ops,
+    LandedTimeout for the timeout), then its group of churn-profile pods
+    is created, then one step; every host-to-device sync of a dispatch,
+    the drain's too, is checked against a fresh upload (watch_resident)
+    before the kernels read it. The drain jumps the clock past the
+    backoff as tests/test_churn.py's _run_trace does. Returns
+    (placements, encoding rebuilds per fault kind and ops applied,
+    arrays checked, the patch and liveness-fence counters); fails unless
+    the affinity-row patch, the label-row patch and the liveness fence
+    each ran and both landed timeouts were injected."""
+    from kubernetes_tpu_torch.api.types import make_pod
+    clock = clock_cls()
+    base = m.apiserver_lite.ApiServerLite()
+    m.hollow.load_cluster(base, m.hollow.hollow_nodes(P16D_NODES), [])
+    api = LandedTimeout(base)
+    sched = m.Scheduler(api, record_events=False, device=device, now=clock)
+    sched.start()
+    if streaming:
+        loop = sched.stream(budget_s=30.0, min_quantum=P16D_QUANTUM,
+                            max_quantum=P16D_QUANTUM)
+    else:
+        loop = sched.pipeline(chunk=P16D_QUANTUM)
+    injector = m.churn.ChurnInjector(api, [])
+    pool = m.hollow.PROFILES["churn"](sum(g for g, _ in P16D_TRACE))
+    # one pod selecting a zone interns the zone labels, so that a relabel
+    # takes the label-row patch (as tests/test_churn.py's relabel case)
+    sel = make_pod("p16d-zone-selector", cpu=100, memory=128 << 20)
+    sel.node_selector = {m.hollow.ZONE_KEY: "zone-a"}
+    pool.insert(1, sel)
+    # a pod of a class of its own ("new-class"): its first dispatch
+    # rebuilds the encoding
+    odd = make_pod("p16d-new-class", cpu=250, memory=128 << 20)
+    m.COUNTERS.reset()
+    marks, at = [], 0
+    tally = ["16d warm", 0, 0]
+    watch_resident(sched.engine, tally)
+
+    def rebuilt():
+        return m.COUNTERS.snapshot().get("engine.aff_full_rebuilds",
+                                         (0, 0.0))[0]
+
+    for gi, (group, ops) in enumerate(P16D_TRACE):
+        tally[0] = f"16d step {gi}"
+        for kind, node in ops:
+            marks.append((kind, rebuilt()))
+            if kind == "new-class":
+                api.create("Pod", odd)
+                continue
+            if kind.startswith("timeout"):
+                want_anti = kind == "timeout"
+                pick = next(p for p in pool[at:at + group]
+                            if (p.affinity is not None) == want_anti
+                            and (want_anti or p.name.startswith("churn-tgt")))
+                api.arm(pick.key())
+                continue
+            if kind.startswith("evict"):
+                bound = [p for p in base.list("Pod")[0] if p.node_name]
+                want_anti = kind == "evict-anti"
+                slot = next(i for i, p in enumerate(bound)
+                            if (p.affinity is not None) == want_anti
+                            and (want_anti or p.name.startswith("churn-tgt")))
+                op = m.churn.ChurnOp(0.0, "evict", evict_slot=slot)
+            elif kind == "relabel":
+                op = m.churn.ChurnOp(0.0, kind, node=node, zone="zone-b")
+            else:
+                op = m.churn.ChurnOp(0.0, kind, node=node)
+            injector.schedule = [op]
+            injector._next = 0
+            injector.apply_until(0.0)
+        for p in pool[at:at + group]:
+            api.create("Pod", p)
+        at += group
+        loop.step()
+    if tally[1] < len(P16D_TRACE):
+        fail(f"16d: {tally[1]} device syncs in {len(P16D_TRACE)} steps")
+    tally[0] = "16d drain"
+    clock.t += 120.0
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        loop.step()
+        if loop.settled():
+            break
+        clock.t += 120.0
+        sched.sync(wait=0.02)
+    if not loop.settled():
+        fail(f"16d: the trace did not settle ({device or 'card'}, "
+             f"streaming {streaming})")
+    loop.close()
+    checked = tally[2]
+    # a fault's cost: the rebuilds from its application to the next
+    # fault's (the last one's through the drain), since a landed timeout
+    # returns on the watch steps later; "warm" is the build before any
+    rebuilds = {"warm": marks[0][1]}
+    marks.append(("end", rebuilt()))
+    for (kind, r0), (_k, r1) in zip(marks, marks[1:]):
+        rebuilds[kind] = max(rebuilds.get(kind, 0), r1 - r0)
+    audit_stream(m, base, sched, f"16d ({device or 'card'}, streaming "
+                 f"{streaming})", "churn")
+    if injector.noop:
+        fail(f"16d: {injector.noop} trace ops found nothing to act on")
+    snap = m.COUNTERS.snapshot()
+    patches = {k: snap.get(k, (0, 0.0))[0] for k in (
+        "engine.aff_patch_rows", "engine.label_patch_rows",
+        "engine.liveness_fence_requeues")}
+    if not all(patches.values()) or api.injected != 2:
+        fail(f"16d ({device or 'card'}, streaming {streaming}): a patch or "
+             f"fence path was not reached: {patches}, landed timeouts "
+             f"{api.injected}")
+    out = {p.key(): p.node_name for p in base.list("Pod")[0]}
+    sched.engine.close()
+    return out, rebuilds, checked, patches
+
+
+def rebuild_bound(quiet, churned, per_kind):
+    """16b's rebuild bound: the churn leg's encoding rebuilds may exceed
+    the quiet leg's only by what its faults cost, each fault at the most
+    16d's CPU run paid for one of its kind; plain foreign binds and
+    evictions (the patch rows) are not in the bound. Returns (bound,
+    the faults counted by kind)."""
+    faults = dict(churned["churn_ops_applied"])
+    faults["timeout"] = churned["injected_bind_timeouts"]
+    bound = quiet["counters"]["engine.aff_full_rebuilds"]
+    for k, n in faults.items():
+        c = max(per_kind.get(k, 0), per_kind.get(f"{k}-anti", 0),
+                per_kind.get(f"{k}-plain", 0))
+        bound += c * n
+    return bound, faults
+
+
+def arrival_on_the_card(m, card, clock_cls):
+    """Phase 16: the always-on arrival stream on the card. Returns
+    (launches of 16a-16c, max abs err per kernel)."""
+    import collections
+    import threading
+    t_phase = time.perf_counter()
+    # threads left by earlier phases share the interpreter lock with the
+    # stream (each of ktadm's join informers used to poll its store's
+    # event log every 50 ms for good)
+    alive = collections.Counter(t.name for t in threading.enumerate())
+    log(f"phase 16 starts with {sum(alive.values())} threads: "
+        f"{dict(alive)}")
+    spy = OperandSpy(m.kernels)
+    launches = {k: 0 for k in m.kernels.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    walls = {}
+    t_sub = time.perf_counter()
+    # 16a: the headline stream, then a traced window at the same rate
+    r = arrival(m, spy=spy, **P16A)
+    audit_stream(m, r["api"], r["sched"], "16a", "density")
+    if r["duplicate_binds"] or r["unbound"] or not r["p50_ms"] \
+            or r["p50_ms"] == r["p99_ms"]:
+        fail(f"16a: duplicate binds {r['duplicate_binds']}, unbound "
+             f"{r['unbound']}, p50 {r['p50_ms']} p99 {r['p99_ms']}")
+    report_arrival("16a headline", r, card)
+    add(r["launches"])
+    r["sched"].engine.close()
+    t = arrival(m, spy=spy, recorder=True, podtrace=True,
+                **dict(P16A, duration_s=P16A_TRACED_S))
+    audit_stream(m, t["api"], t["sched"], "16a traced", "density")
+    ex = t["podtrace"]["tail_exemplars"]
+    if not ex or not all(e["attribution_exact"] for e in ex) \
+            or t["duplicate_binds"] or t["unbound"]:
+        fail(f"16a traced: exemplars {len(ex)}, inexact "
+             f"{[e['key'] for e in ex if not e['attribution_exact']][:3]}, "
+             f"duplicate binds {t['duplicate_binds']}, unbound "
+             f"{t['unbound']}")
+    report_arrival("16a traced (recorder + podtrace)", t, card)
+    raw = t["podtrace"]["tail_exemplars_raw"]
+    log(f"16a traced: {len(ex)} tail exemplars ({raw} raw), every "
+        f"attribution exact; slowest "
+        f"{ex[0]['create_to_bound_ms']} ms = "
+        f"{json.dumps(ex[0]['phases_ms'])}; recorder events "
+        f"{t['recorder_events']} (dropped {t['recorder_dropped']}); SLO "
+        f"{json.dumps(t['slo'].get('objectives', t['slo']))[:300]}")
+    add(t["launches"])
+    t["sched"].engine.close()
+
+    walls["16a"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+    # 16b: churn, a quiet leg and a leg under the seeded faults
+    quiet = arrival(m, spy=spy, **P16B)
+    audit_stream(m, quiet["api"], quiet["sched"], "16b quiet", "churn")
+    report_arrival("16b quiet", quiet, card)
+    add(quiet["launches"])
+    quiet["sched"].engine.close()
+    churned = arrival(m, spy=spy, churn_cfg=m.churn.ChurnConfig(
+        **P16B_CHURN), **P16B)
+    audit_stream(m, churned["api"], churned["sched"], "16b churn", "churn")
+    report_arrival("16b churn", churned, card)
+    add(churned["launches"])
+    churned["sched"].engine.close()
+    if quiet["duplicate_binds"] or churned["duplicate_binds"]:
+        fail(f"16b: duplicate binds quiet {quiet['duplicate_binds']} "
+             f"churn {churned['duplicate_binds']}")
+    c = churned["counters"]
+    fields = {
+        "churn_offered_pods_s": P16B["rate"],
+        "churn_quiet_sustained_pods_s": quiet["sustained_pods_s"],
+        "churn_sustained_pods_s": churned["sustained_pods_s"],
+        "churn_vs_quiet": round(churned["sustained_pods_s"]
+                                / quiet["sustained_pods_s"], 3)
+        if quiet["sustained_pods_s"] else 0.0,
+        "churn_p99_create_to_bound_ms": round(churned["p99_ms"], 3),
+        "churn_bound": churned["bound"], "churn_unbound": churned["unbound"],
+        "churn_bind_errors": churned["bind_errors"],
+        "churn_injected_bind_failures": churned["injected_bind_failures"],
+        "churn_injected_bind_timeouts": churned["injected_bind_timeouts"],
+        "churn_duplicate_binds": churned["duplicate_binds"],
+        "churn_ops_applied": churned["churn_ops_applied"],
+        "churn_ops_noop": churned["churn_ops_noop"],
+        "churn_liveness_requeued": churned["liveness_requeued"],
+        "churn_fence_requeued": churned["fence_requeued"],
+        "churn_degraded_steps": churned["degraded_steps"],
+        "churn_aff_patch_rows": c["engine.aff_patch_rows"],
+        "churn_aff_full_rebuilds": c["engine.aff_full_rebuilds"],
+        "churn_label_patch_rows": c["engine.label_patch_rows"],
+        "churn_liveness_fence_requeues": c["engine.liveness_fence_requeues"],
+        "churn_degraded_enter": c["stream.degraded_enter"],
+        "churn_degraded_exit": c["stream.degraded_exit"],
+        "quiet_aff_full_rebuilds": quiet["counters"][
+            "engine.aff_full_rebuilds"]}
+    log("16b churn fields: " + json.dumps(fields) + f" [{card}]")
+    if c["stream.degraded_enter"] > c["stream.degraded_exit"]:
+        fail(f"16b: the loop entered degraded mode "
+             f"{c['stream.degraded_enter']} times and left it "
+             f"{c['stream.degraded_exit']}")
+
+    walls["16b"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+    # 16c: the rolling update
+    ru = rolling_update(m, P16C, spy=spy)
+    add(ru["launches"])
+    log(f"16c rolling update at {ru['nodes']} nodes: completion "
+        f"{ru['completion_s']} s, replacement create->bound p50 "
+        f"{ru['replacement_p50_ms']} ms p99 {ru['replacement_p99_ms']} ms, "
+        f"{ru['replacements_bound']} replacements, bounds "
+        f"{json.dumps(ru['bounds'])}, background pods {ru['bg_created']}, "
+        f"launches {ru['launches']} [{card}]")
+    walls["16c"] = time.perf_counter() - t_sub
+    err = spy.check("phase 16")
+    if launches["capacity_fit"] == 0:
+        fail("phase 16 never launched the capacity kernel")
+
+    # 16d: card == CPU on the frozen churn trace
+    t_sub = time.perf_counter()
+    runs = {}
+    for tag, dev, streaming in (("card stream", None, True),
+                                ("card pipeline", None, False),
+                                ("CPU stream", "cpu", True)):
+        runs[tag] = churn_trace(m, dev, streaming, clock_cls)
+    want = runs["CPU stream"][0]
+    for tag in ("card stream", "card pipeline"):
+        got = runs[tag][0]
+        diff = {k: (got.get(k), v) for k, v in want.items()
+                if got.get(k) != v}
+        if diff or set(got) != set(want):
+            fail(f"16d: the {tag} placements differ from the CPU stream's "
+                 f"in {len(diff)} pods, e.g. {list(diff.items())[:3]}")
+    per_kind = runs["CPU stream"][1]
+    log(f"16d: card stream == card pipeline == CPU stream in {len(want)} "
+        f"placements; resident arrays equal a fresh upload at every sync "
+        f"({runs['card stream'][2]} arrays checked on the card stream; "
+        f"patch and fence counters {json.dumps(runs['card stream'][3])}); "
+        f"encoding rebuilds per fault on the CPU {json.dumps(per_kind)}")
+    walls["16d"] = time.perf_counter() - t_sub
+    bound, faults = rebuild_bound(quiet, churned, per_kind)
+    if c["engine.aff_full_rebuilds"] > bound:
+        fail(f"16b: {c['engine.aff_full_rebuilds']} encoding rebuilds under "
+             f"churn, past the bound {bound} (quiet "
+             f"{quiet['counters']['engine.aff_full_rebuilds']} + faults "
+             f"{faults} at 16d's cost per kind)")
+    log(f"16b: {c['engine.aff_full_rebuilds']} encoding rebuilds under "
+        f"churn within the bound {bound} (quiet "
+        f"{quiet['counters']['engine.aff_full_rebuilds']} + faults "
+        f"{json.dumps(faults)} at 16d's cost per kind), "
+        f"{c['engine.aff_patch_rows']} patch rows")
+    log(f"phase 16 launches {launches}; walls (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; phase "
+        f"16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6269,7 +7299,13 @@ def main() -> int:
     for k, v in err_p15.items():
         max_err[k] = max(max_err[k], v)
 
-    # 16. summary
+    # 16. the always-on arrival stream
+    launches_p16, err_p16 = arrival_on_the_card(stream_mods(), card,
+                                                FakeClock)
+    for k, v in err_p16.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 17. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -6284,7 +7320,8 @@ def main() -> int:
                          + launches_p8[name] + launches_p9[name]
                          + launches_p10[name] + launches_p11[name]
                          + launches_p12[name] + launches_p13[name]
-                         + launches_p14[name] + launches_p15[name]),
+                         + launches_p14[name] + launches_p15[name]
+                         + launches_p16[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -6301,7 +7338,7 @@ def main() -> int:
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
         f"mesh {launches_p11}, front door {launches_p12}, controllers "
         f"and the trace {launches_p13}, node agents {launches_p14}, "
-        f"command line {launches_p15}")
+        f"command line {launches_p15}, arrival stream {launches_p16}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -298,9 +298,14 @@ class KtAdm:
         signing = CSRSigningController(api.store, factory, cluster.ca,
                                        record_events=False)
         factory.start()
-        factory.step_all()
-        approving.sync(csr.name)
-        signing.sync(csr.name)
+        try:
+            factory.step_all()
+            approving.sync(csr.name)
+            signing.sync(csr.name)
+        finally:
+            # the join's informers end with it: left running, each would
+            # rescan the store's event log every 50 ms for good
+            factory.stop()
         issued = api.store.get("CertificateSigningRequest", "", csr.name)
         if issued.certificate is None:
             raise SystemExit(

@@ -88,7 +88,7 @@ from kubernetes_tpu_torch.ops.oracle_ext import (
 )
 from kubernetes_tpu_torch.ops.predicates import bucket
 from kubernetes_tpu_torch.parallel import mesh as mesh_mod
-from kubernetes_tpu_torch.state.cache import SchedulerCache
+from kubernetes_tpu_torch.state.cache import RETURNED, SchedulerCache
 from kubernetes_tpu_torch.state.classes import ClassBatch, pod_class_key
 from kubernetes_tpu_torch.state.snapshot import (
     R_CPU,
@@ -889,7 +889,7 @@ class _WaveEncoding:
                  "committed_nodes", "key_node", "static_forbid_hit",
                  "tail_cols", "aff_wave_dev", "aff_tail_dev",
                  "anti_terms", "aff_terms", "foreign_forbid",
-                 "foreign_forbid_dom", "aff_patch_dirty",
+                 "foreign_forbid_dom", "aff_patch_dirty", "absent",
                  "host_exact", "host_static", "policy_on", "spread_on",
                  "wkey", "has_static_cols")
 
@@ -963,6 +963,10 @@ class _WaveEncoding:
             (c_pad, len(tail_cols)), dtype=np.int32) \
             if fits_on and tail_cols is not None else None
         self.aff_patch_dirty = False
+        # names of the node-less NodeInfos at build (dead nodes'
+        # tombstones): AffinityData resolved their pods to no domain, so
+        # such a node's own forbid column is rewritten when it returns
+        self.absent: frozenset = frozenset()
         # per-class required term lists for foreign-event matching
         # [(class, slot, term, rep)] — empty for affinity-free encodings
         self.anti_terms: list = []
@@ -1770,7 +1774,16 @@ class SchedulingEngine:
         rebuild — when the event log no longer covers the gap, a churned
         pod CARRIES (anti-)affinity terms, it matches an encoded class's
         own required-AFFINITY selector, or its node is unknown to the
-        snapshot. Delta-0 events (tombstone moves) are no-op patches."""
+        snapshot. Delta-0 events (tombstone moves) are no-op patches.
+
+        A node that returns (RETURNED events, one per pod it kept) is a
+        no-op where the encoding was built with it; where it was absent
+        at build its pods had no domain, so its forbid counts (its node
+        column and the tail domain columns no other node carries) are
+        rewritten from exactly the pods it returns with, counts patched
+        while it was dead included; a returning pod with terms of its own,
+        or one that hits a tail domain column other nodes share, rebuilds.
+        A departure from the reference, which keeps no such row."""
         events = self.cache.aff_events_since(enc.aff_seq)
         if events is None:
             return False
@@ -1780,7 +1793,17 @@ class SchedulingEngine:
         ad = enc.adata
         patched = 0
         touched = False
+        returned: Dict[str, np.ndarray] = {}  # node -> its private tail cols
         for _seq, pod, node_name, delta in events:
+            if delta == RETURNED:
+                if ad is None or node_name not in enc.absent:
+                    patched += 1
+                    continue
+                n_idx = snap.node_index.get(node_name, -1)
+                if node_name not in returned and n_idx >= 0:
+                    returned[node_name] = self._clear_returned(enc, n_idx)
+                    touched = True
+                delta = 1
             if delta == 0:
                 patched += 1
                 continue
@@ -1817,6 +1840,10 @@ class SchedulingEngine:
                     cols_hit = (
                         (ad.anti_keymask[c, a, enc.tail_cols] > 0)
                         & (snap.labels[n_idx, enc.tail_cols] > 0))
+                    if node_name in returned \
+                            and (cols_hit & ~returned[node_name]).any():
+                        return False  # counts patched while it was dead
+                        # ride shared domain columns: not separable
                     if delta > 0:
                         fd[c, cols_hit] += 1
                         touched = True
@@ -1833,6 +1860,21 @@ class SchedulingEngine:
         if patched and RECORDER.enabled:
             RECORDER.record(flightrec.PATCH, a=patched)
         return True
+
+    def _clear_returned(self, enc: "_WaveEncoding", n_idx: int) -> np.ndarray:
+        """Zero the forbid counts that only node row `n_idx` carries: its
+        foreign_forbid column and the tail domain columns on it and on no
+        other node. Returns those tail columns as a mask."""
+        if enc.foreign_forbid is not None:
+            enc.foreign_forbid[:, n_idx] = 0
+        cols = enc.tail_cols
+        if cols is None:
+            return np.zeros(0, dtype=bool)
+        lab = self.snapshot.labels[:, cols] > 0                 # [N, Lp]
+        private = lab[n_idx] & (lab.sum(axis=0) == 1)
+        if enc.foreign_forbid_dom is not None:
+            enc.foreign_forbid_dom[:, private] = 0
+        return private
 
     def _try_patch_labels(self, enc: "_WaveEncoding", infos) -> bool:
         """Absorb label-CONTENT churn (relabels to already-interned
@@ -2156,6 +2198,8 @@ class SchedulingEngine:
             spread_on=spread_on, wkey=workloads_now,
             has_static_cols=bool(host_fit_rows) or policy_cols)
         if adata is not None:
+            enc2.absent = frozenset(nm for nm, i in infos.items()
+                                    if i.node is None)
             for c, rep in enumerate(reps):
                 for a, term in enumerate(_own_terms(rep, anti=True)):
                     enc2.anti_terms.append((c, a, term, rep))

@@ -256,12 +256,14 @@ class EmbeddedVerdictAPI(VerdictService):
     def __init__(self, binder=None, stale_window_s: float = 0.025,
                  coalesce_window_s: float = 0.0005,
                  coalesce_max_batch: int = 64,
-                 coalesce_max_depth: int = 512):
+                 coalesce_max_depth: int = 512, device=None):
+        # `device` reaches the backend (None = the card), as every entry
+        # point of the port takes it
         super().__init__(TPUExtenderBackend(
             binder=binder, stale_window_s=stale_window_s,
             coalesce_window_s=coalesce_window_s,
             coalesce_max_batch=coalesce_max_batch,
-            coalesce_max_depth=coalesce_max_depth))
+            coalesce_max_depth=coalesce_max_depth, device=device))
 
     def schedule_one(self, pod, top_k: int = 32, max_attempts: int = 80,
                      deadline_s: Optional[float] = None,

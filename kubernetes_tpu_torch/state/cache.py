@@ -44,6 +44,10 @@ class _PodState:
         self.binding_finished = False
 
 
+# the aff-log delta of a pod whose node came back (see SchedulerCache)
+RETURNED = 2
+
+
 class SchedulerCache:
     # how many affinity-churn events the Protean patch log retains; a
     # consumer further behind than this rebuilds wholesale
@@ -77,6 +81,9 @@ class SchedulerCache:
         # (node removed: the pod's NodeInfo became a tombstone stub under
         # the same name — a no-op for label-derived views, since the
         # snapshot keeps the row and its label content in place).
+        # delta == RETURNED marks a pod whose node came back (add_node over
+        # a node-less NodeInfo): an encoding built while the node was
+        # absent resolved the pod's domains to nothing.
         # Bounded ring: _aff_log_start is the lowest seq whose delta is
         # still retained; consumers behind it must rebuild.
         self._aff_log: List[tuple] = []
@@ -95,7 +102,7 @@ class SchedulerCache:
         """Bump aff_seq AND record what moved (caller holds the lock)."""
         lockcheck.assert_held(self._lock, "_aff_event_locked")
         self.aff_seq += 1
-        if delta != 0 and pod.has_pod_affinity():
+        if delta in (1, -1) and pod.has_pod_affinity():
             self._aff_pods += delta
         log = self._aff_log
         log.append((self.aff_seq, pod, node_name, delta))
@@ -328,7 +335,16 @@ class SchedulerCache:
             if info is None:
                 info = NodeInfo()
                 self._nodes[node.name] = info
+            returned = info.node is None
             info.set_node(node)
+            if returned:
+                # the pods a tombstone (or an early watch event) kept
+                # become topology sources again; an encoding built while
+                # the node was absent must learn of them (the reference
+                # logs nothing here and places an anti-affinity pod beside
+                # them on the respawned node)
+                for p in info.pods:
+                    self._aff_event_locked(p, node.name, RETURNED)
 
     def update_node(self, node: Node) -> None:
         self.add_node(node)

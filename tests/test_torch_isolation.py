@@ -9,7 +9,9 @@ line (the hyperkube dispatcher, ktctl, ktadm, strategic merge patch) and
 linter (graftlint's engine, rules and CLI) import and run so; a spawned
 cell process or fleet worker of the port never imports either; and its
 entry points refuse to run on a box without a card unless the caller
-names the CPU (the CLI's --trend needs no card)."""
+names the CPU (the CLI's --trend needs no card). Nothing scanned imports
+bench.py or its siblings, and chip_smoke.py's arrival harness runs with
+jax, the reference and bench.py blocked."""
 
 import ast
 import json
@@ -33,6 +35,7 @@ from kubernetes_tpu_torch.engine.scheduler_engine import (
 from kubernetes_tpu_torch.server.apiserver import ApiServer
 from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
 from kubernetes_tpu_torch.server.daemon import SchedulerDaemon
+from kubernetes_tpu_torch.server.embedded import EmbeddedVerdictAPI
 from kubernetes_tpu_torch.server.extender import TPUExtenderBackend
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
@@ -40,6 +43,10 @@ from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot
 PKG = pathlib.Path(kubernetes_tpu_torch.__file__).parent
 REPO = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "kubernetes_tpu")
+# the reference's benchmark scripts import the reference: chip_smoke.py's
+# arrival harness (phase 16) is its own, and nothing scanned may import
+# them
+BENCH_SCRIPTS = ("bench", "bench_matrix", "profile_bench")
 
 
 def _imports(path):
@@ -60,8 +67,45 @@ SCANNED = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in FORBIDDEN]
+           if m.split(".")[0] in FORBIDDEN + BENCH_SCRIPTS]
     assert not bad, f"{path}: {bad}"
+
+
+def test_arrival_harness_runs_with_jax_reference_and_bench_blocked():
+    """chip_smoke.py's phase-16 harness (the arrival stream, a churn leg
+    behind FaultyBindApi and ChurnInjector, the rolling update) imports
+    and runs on the CPU in a process where jax, the reference package and
+    bench.py cannot be imported, and loads none of them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'kubernetes_tpu', 'bench', 'bench_matrix',\n"
+        "          'profile_bench'):\n"
+        "    sys.modules[m] = None\n"
+        "import chip_smoke as cs\n"
+        "m = cs.stream_mods()\n"
+        "kw = dict(min_quantum=64, max_quantum=128, budget_ms=500.0,\n"
+        "          device='cpu')\n"
+        "r = cs.arrival(m, 16, 200.0, 1.0, **kw)\n"
+        "assert r['bound'] == 200 and r['duplicate_binds'] == 0\n"
+        "cfg = m.churn.ChurnConfig(seed=3, node_churn_per_min=12.0,\n"
+        "                          bind_fail_rate=0.05,\n"
+        "                          bind_timeout_rate=0.05)\n"
+        "c = cs.arrival(m, 16, 200.0, 1.0, profile='churn',\n"
+        "               churn_cfg=cfg, **kw)\n"
+        "cs.audit_stream(m, c['api'], c['sched'], 'churn', 'churn')\n"
+        "u = cs.rolling_update(m, dict(cs.P16C, replicas=8, max_surge=2,\n"
+        "                              max_unavailable=2, bg_rate=20.0),\n"
+        "                      device='cpu')\n"
+        "assert u['bounds']['created'] == 8\n"
+        "print(sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'kubernetes_tpu', 'bench',\n"
+        "                                    'bench_matrix', 'profile_bench')\n"
+        "             and sys.modules[n] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_package_imports_with_jax_and_reference_blocked():
@@ -384,6 +428,8 @@ def test_entry_points_default_to_the_card():
         Scheduler(ApiServer())
     with pytest.raises(RuntimeError, match="CUDA"):
         TPUExtenderBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddedVerdictAPI()
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_pods_batch([], {}, ClusterSnapshot(), ())
     with pytest.raises(RuntimeError, match="CUDA"):

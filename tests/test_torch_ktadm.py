@@ -96,6 +96,27 @@ def test_token_join_flow(k, tmp_path):
         res.api.create("Namespace", k.Namespace("x"), cred=node_cred)
 
 
+def test_join_stops_its_informers(tmp_path):
+    """The port's join stops the CSR informers it started; the
+    reference's leaves one polling thread behind per join (a departure
+    of the port, result-equal: the join's outcome is the case above)."""
+    import threading
+
+    def csr_informers():
+        return sum(t.name == "informer-CertificateSigningRequest"
+                   for t in threading.enumerate())
+
+    for root, leaked in ((PORT, 0), (REF, 2)):
+        k = PKGS[root]
+        before = csr_informers()
+        (tmp_path / root).mkdir()
+        adm, res, _ = init_cluster(k, tmp_path / root)
+        for i in range(2):
+            adm.join(res, f"worker-{i}", res.token,
+                     ca_cert_hash=k.ca_hash(res.ca_key))
+        assert csr_informers() - before == leaked, root
+
+
 def test_join_rejects_bad_token_and_bad_ca_hash(k, tmp_path):
     adm, res, _ = init_cluster(k, tmp_path)
     with pytest.raises(k.Unauthenticated):
@@ -280,7 +301,9 @@ def _cluster_in_a_box(k, tmp_path):
                                       record_events=False)
     rs_ctrl = k.ReplicaSetController(api.store, factory,
                                      record_events=False)
-    factory.start()
+    # the informers are stepped by hand before every pump (no
+    # factory.start()): their threads would race the pumps, and which pods
+    # a ReplicaSet stamps would then depend on the host's load
     sched = k.Scheduler(api.store, **DEVICE[k.root])
     sched.start()
 
