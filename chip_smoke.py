@@ -350,7 +350,19 @@ phase fails. Phases:
      shape is held against the plain version; the incidence kernel is
      not on this path (the churn profile's anti-affinity is on the
      hostname, answered per node);
- 17. print the per-kernel summary line, then the result line.
+ 17. the reference's oracle tables on the card: every body of
+     tests/test_torch_kernel_tables.py (the reference's
+     test_predicates_kernel, test_priorities_kernel, test_priorities_ext
+     and test_volumes, at their own seeds and sizes: tiny, ragged node
+     counts with zero requests, GPUs, host ports, taints, volumes and
+     inter-pod terms) runs through the port on the card with the port's
+     table helpers (tests/torch_tables.py). Each (pod, node) verdict and
+     score must equal the object oracle (the bodies' own asserts) and the
+     port's CPU route, cell by cell; the inter-pod tables also go through
+     the fused verdict (evaluate_pod), so the incidence kernel runs at
+     their shapes. Every launch of both kernels is held against its plain
+     version, and the phase fails if either kernel never launched;
+ 18. print the per-kernel summary line, then the result line.
 
 Phase 1 also logs whether kubernetes_tpu_torch.native loaded
 native/libhostops.so or fell back to numpy (the snapshot's label
@@ -358,8 +370,9 @@ scatter), and whether PyYAML is importable (ktctl needs it only for -o
 yaml, create -f, apply -f and edit; phase 15 uses none of them). Launch
 counts are zeroed just before each main-path run (phases 4, 5, 6, 7,
 8a-8c, 9a-9d, 10a-10b, 11a, 11b, 12a-12c, 13a, 13b, 14a-14d as one run,
-15b from `ktctl run` to the last ktctl step, and each stream of 16a-16c
-from its scheduler's start; in 10a and 10b each child process counts its
+15b from `ktctl run` to the last ktctl step, each stream of 16a-16c
+from its scheduler's start, and 17's table bodies as one run; in 10a and
+10b each child process counts its
 own, and 15a's scheduler child is not counted)
 and read just after it; launches made by the comparisons do not count.
 """
@@ -1077,8 +1090,11 @@ class OperandSpy:
     on exactly what the path gave them. The wrapped functions are the
     module attributes every caller looks up at call time."""
 
-    def __init__(self, kernels):
+    def __init__(self, kernels, every=False):
         self.kernels = kernels
+        # every=True keeps the operands of every launch, not only the
+        # first at each shape
+        self.every = every
         self.cap = {}
         self.inc = {}
         # (kernel, thread name) -> calls on the card: a mesh's SPMD
@@ -1104,6 +1120,8 @@ class OperandSpy:
             key = ("mask", tuple(pod_req.shape), tuple(alloc.shape),
                    zero_req is not None)
             self._note("capacity_fit", pod_req, key)
+            if self.every:
+                key += (len(self.cap),)
             if pod_req.is_cuda and key not in self.cap:
                 self.cap[key] = tuple(
                     None if t is None else t.clone()
@@ -1113,6 +1131,8 @@ class OperandSpy:
         def capacity_headroom(*ops):
             key = ("wave", tuple(ops[0].shape), tuple(ops[2].shape), True)
             self._note("capacity_fit", ops[0], key)
+            if self.every:
+                key += (len(self.cap),)
             if ops[0].is_cuda and key not in self.cap:
                 self.cap[key] = tuple(t.clone() for t in ops)
             return head(*ops)
@@ -1120,6 +1140,8 @@ class OperandSpy:
         def incidence_matmul(a, b_t):
             key = (tuple(a.shape), tuple(b_t.shape))
             self._note("incidence_matmul", a, key)
+            if self.every:
+                key += (len(self.inc),)
             if a.is_cuda and key not in self.inc:
                 self.inc[key] = (a.clone(), b_t.clone())
             return inc(a, b_t)
@@ -1157,7 +1179,7 @@ class OperandSpy:
         (M, N, L) with L as the caller gave it (the wrapper pads L to a
         multiple of 8)."""
         cap = sorted({(k[1][0], k[2][0], k[1][1]) for k in self.cap})
-        inc = sorted({(a[0], b[0], a[1]) for a, b in self.inc})
+        inc = sorted({(a[0], b[0], a[1]) for a, b, *_ in self.inc})
         return cap, inc
 
     def check(self, tag):
@@ -1187,9 +1209,13 @@ class OperandSpy:
                                           abs_err(got, want))
             if not torch.equal(got, want):
                 fail(f"{tag}: incidence_matmul != plain at {key}")
-        log(f"{tag}: kernel == plain at every launch shape of the run "
-            f"(capacity {sorted(self.cap, key=str)}; incidence "
-            f"{sorted(self.inc)})")
+        if self.every:
+            log(f"{tag}: kernel == plain at every launch of the run "
+                f"({len(self.cap)} capacity, {len(self.inc)} incidence)")
+        else:
+            log(f"{tag}: kernel == plain at every launch shape of the run "
+                f"(capacity {sorted(self.cap, key=str)}; incidence "
+                f"{sorted(self.inc)})")
         return err
 
 
@@ -7099,6 +7125,85 @@ def arrival_on_the_card(m, card, clock_cls):
     return launches, err
 
 
+def table_cases(mod):
+    """(name, body, kwargs) for every case of the test bodies of `mod`:
+    each test function once per combination of its parametrize marks."""
+    import inspect
+    import itertools
+    for name, fn in vars(mod).items():
+        if not name.startswith("test_") or not inspect.isfunction(fn):
+            continue
+        grids = []
+        for mark in getattr(fn, "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            names = [a.strip() for a in mark.args[0].split(",")]
+            grids.append([dict(zip(names, v if len(names) > 1 else (v,)))
+                          for v in mark.args[1]])
+        for combo in itertools.product(*grids):
+            kw = {}
+            for part in combo:
+                kw.update(part)
+            extra = set(inspect.signature(fn).parameters) - {"k"} - set(kw)
+            if extra:
+                fail(f"phase 17: {name} needs fixtures {sorted(extra)}")
+            yield name, fn, kw
+
+
+def checkout_tests():
+    """The checkout's tests/ as the package `tests`: it has no
+    __init__.py, so an installed package of that name would otherwise
+    shadow it."""
+    import types
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests")
+    if here not in list(getattr(sys.modules.get("tests"), "__path__", [])):
+        pkg = types.ModuleType("tests")
+        pkg.__path__ = [here]
+        sys.modules["tests"] = pkg
+
+
+def oracle_tables(kernels, device="cuda"):
+    """Every case of tests/test_torch_kernel_tables.py through the port
+    on `device`, its table helpers held against the port's CPU route.
+    Returns (cases, the `k` of the run, the spy, launches)."""
+    checkout_tests()
+    from tests import test_torch_kernel_tables as tables_mod
+    from tests.torch_tables import Tables
+    k = tables_mod.port_tables(device, against=Tables("cpu"))
+    spy = OperandSpy(kernels, every=True)
+    cases = list(table_cases(tables_mod))
+    kernels.reset_launch_counts()
+    with spy:
+        for name, fn, kw in cases:
+            fn(k, **kw)
+    launches = dict(kernels.LAUNCHES)
+    return cases, k, spy, launches
+
+
+def oracle_tables_on_the_card(kernels):
+    """Phase 17: the reference's kernel-versus-oracle tables on the card.
+    Returns (launches, max abs err per kernel)."""
+    t_phase = time.perf_counter()
+    cases, k, spy, launches = oracle_tables(kernels)
+    t_run = time.perf_counter() - t_phase
+    names = sorted({name for name, _, _ in cases})
+    log(f"17: {len(cases)} cases of {len(names)} table bodies on the card "
+        f"in {t_run:.2f} s; {k.tables.cells} (pod, node) cells equal to "
+        f"the CPU route, {k.tables.verdicts} inter-pod oracle answers "
+        f"matched by evaluate_pod; launches {launches}; launch shapes "
+        f"{spy.launches_by_shape()}")
+    if not k.tables.cells or not k.tables.verdicts:
+        fail(f"17: {k.tables.cells} cells and {k.tables.verdicts} "
+             f"verdicts held against the CPU route")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"17: the tables never launched the {name} kernel")
+    err = spy.check("17")
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -7305,7 +7410,12 @@ def main() -> int:
     for k, v in err_p16.items():
         max_err[k] = max(max_err[k], v)
 
-    # 17. summary
+    # 17. the reference's oracle tables on the card
+    launches_p17, err_p17 = oracle_tables_on_the_card(kernels)
+    for k, v in err_p17.items():
+        max_err[k] = max(max_err[k], v)
+
+    # 18. summary
     replaces = {"capacity_fit": "kubernetes_tpu/ops/pallas_kernels.py:90",
                 "incidence_matmul": "kubernetes_tpu/ops/pallas_kernels.py:144"}
     rows = []
@@ -7321,7 +7431,7 @@ def main() -> int:
                          + launches_p10[name] + launches_p11[name]
                          + launches_p12[name] + launches_p13[name]
                          + launches_p14[name] + launches_p15[name]
-                         + launches_p16[name]),
+                         + launches_p16[name] + launches_p17[name]),
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -7338,7 +7448,8 @@ def main() -> int:
         f"lane {launches_p9}, process fleet and federation {launches_p10}, "
         f"mesh {launches_p11}, front door {launches_p12}, controllers "
         f"and the trace {launches_p13}, node agents {launches_p14}, "
-        f"command line {launches_p15}, arrival stream {launches_p16}")
+        f"command line {launches_p15}, arrival stream {launches_p16}, "
+        f"oracle tables {launches_p17}")
     log("device functions (PyTorch ops, not kernels): "
         + json.dumps(dev_fns))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -59,8 +59,13 @@ def _imports(path):
             yield node.module or ""
 
 
-SCANNED = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                       REPO / "kernel_ab.py"]
+# the port's storm child (tests/test_torch_store_wire.py's kill -9 case)
+# and the port's table helpers (chip_smoke.py's phase 17) run without the
+# reference too
+SCANNED = sorted(PKG.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py",
+    REPO / "tests" / "_torch_persistence_storm.py",
+    REPO / "tests" / "torch_tables.py"]
 
 
 @pytest.mark.parametrize("path", SCANNED,
@@ -106,6 +111,61 @@ def test_arrival_harness_runs_with_jax_reference_and_bench_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_oracle_tables_run_with_jax_and_reference_blocked():
+    """chip_smoke.py's phase 17 runs every case of
+    tests/test_torch_kernel_tables.py through the port (here on the CPU,
+    held against a second CPU route) in a process where jax, the
+    reference package and bench.py cannot be imported, and loads none of
+    them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'kubernetes_tpu', 'bench', 'bench_matrix',\n"
+        "          'profile_bench'):\n"
+        "    sys.modules[m] = None\n"
+        "import chip_smoke as cs\n"
+        "from kubernetes_tpu_torch.ops import kernels\n"
+        "cases, k, spy, launches = cs.oracle_tables(kernels, 'cpu')\n"
+        "assert len(cases) == 44 and k.tables.cells > 4000, len(cases)\n"
+        "assert k.tables.verdicts == 10, k.tables.verdicts\n"
+        "print(sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'kubernetes_tpu', 'bench',\n"
+        "                                    'bench_matrix', 'profile_bench')\n"
+        "             and sys.modules[n] is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_storm_child_runs_with_jax_and_reference_blocked(tmp_path):
+    """The port's kill -9 storm child binds on a durable store in a
+    process where jax and the reference package cannot be imported."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_tpu'] = None\n"
+        f"sys.argv = ['storm', {str(tmp_path / 'data')!r}, '4', '40']\n"
+        "runpy.run_path('tests/_torch_persistence_storm.py',\n"
+        "               run_name='__main__')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.strip())
+            if line.startswith("BOUND") and int(line.split()[1]) >= 50:
+                break
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    assert lines[0] == "READY" and lines[-1] == "BOUND 50", (lines, err)
 
 
 def test_package_imports_with_jax_and_reference_blocked():

@@ -11,6 +11,7 @@ either package: bench.run_arrival itself drives the reference only."""
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 
@@ -245,6 +246,13 @@ def _arrival(k, n_nodes, rate, duration_s, min_quantum, max_quantum,
         p.name = "prime-" + p.name
         api.create("Pod", p)
     loop.drain()
+    # bench.run_arrival's quiet box for the measured window: a gen-2
+    # collection over the warm heap stops the creator and the loop alike
+    # for hundreds of ms (over a second beside a parallel suite), long
+    # enough to leave a whole interval bucket without a bind
+    gc.collect()
+    gc.freeze()
+    gc.disable()
     created = [0]
     create_ts = np.full(total, -1.0)
     create_log = []
@@ -269,7 +277,6 @@ def _arrival(k, n_nodes, rate, duration_s, min_quantum, max_quantum,
                 time.sleep(min(delay, max(0.0005, max_burst / rate / 4)))
 
     thread = threading.Thread(target=creator, daemon=True)
-    thread.start()
     backlog_at_offer_end = [None]
     deadline = t0 + max(60.0, duration_s * 20)
 
@@ -284,9 +291,12 @@ def _arrival(k, n_nodes, rate, duration_s, min_quantum, max_quantum,
         assert time.monotonic() < deadline, "arrival run incomplete"
         return False
     try:
+        thread.start()
         loop.run(done, on_step=note)
     finally:
         loop.close()
+        gc.enable()
+        gc.unfreeze()
     thread.join(timeout=10)
     sched.wave_observer = None
     lat = np.full(total, -1.0)

@@ -49,23 +49,66 @@ def helpers(root):
     return reference_test_module("helpers", root)
 
 
-
 def reference_test_module(name, root):
     """The reference's tests/<name>.py with its imports of the reference
-    (and of tests/helpers.py) pointed at package `root`: its generators
-    build `root`'s own objects from the same seeds."""
+    pointed at package `root`, and every tests.<module> it imports
+    (tests/helpers.py, tests/test_full_fuzz.py, tests/test_nodes.py, ...)
+    built the same way on `root`: its generators build `root`'s own
+    objects from the same seeds. The module's `__file__` is the reference
+    file's path. Built once per (name, root)."""
     import pathlib
     import re
     import sys
     import types
-    src = (pathlib.Path(__file__).with_name(f"{name}.py")).read_text()
-    src = re.sub(r"^(\s*)from kubernetes_tpu([ .])", rf"\1from {root}\2",
-                 src, flags=re.M)
-    if name != "helpers":
-        alias = f"tests._helpers_{root}"
-        sys.modules.setdefault(alias, helpers(root))
-        src = src.replace("from tests.helpers import",
-                          f"from {alias} import")
-    mod = types.ModuleType(f"tests.{name}[{root}]")
-    exec(compile(src, mod.__name__, "exec"), mod.__dict__)
+    alias = f"tests._{name}_{root}"
+    if alias in sys.modules:
+        return sys.modules[alias]
+    path = pathlib.Path(__file__).with_name(f"{name}.py")
+    src = path.read_text()
+    src = re.sub(r"^(\s*)(from|import) kubernetes_tpu([ .])",
+                 rf"\1\2 {root}\3", src, flags=re.M)
+    for dep in sorted(set(re.findall(r"^\s*from tests\.(\w+) import",
+                                     src, flags=re.M))):
+        dep_alias = reference_test_module(dep, root).__name__
+        src = re.sub(rf"^(\s*)from tests\.{dep} import",
+                     rf"\1from {dep_alias} import", src, flags=re.M)
+    mod = types.ModuleType(alias)
+    mod.__file__ = str(path)
+    sys.modules[alias] = mod
+    try:
+        exec(compile(src, str(path), "exec"), mod.__dict__)
+    except BaseException:
+        del sys.modules[alias]
+        raise
     return mod
+
+
+def twin(obj, root, _memo=None):
+    """`obj`, built of one package's classes, rebuilt field by field of
+    package `root`'s classes of the same module path and name (enums by
+    member name); containers are rebuilt around their twins, anything
+    else is shared. The same inputs for the other package's helpers."""
+    import enum
+    memo = {} if _memo is None else _memo
+    if id(obj) in memo:
+        return memo[id(obj)]
+    cls = type(obj)
+    mod = cls.__module__
+    pkg = next((p for p in (REF, PORT)
+                if mod == p or mod.startswith(p + ".")), None)
+    if pkg is not None:
+        target = getattr(importlib.import_module(root + mod[len(pkg):]),
+                         cls.__qualname__)
+        if isinstance(obj, enum.Enum):
+            return target[obj.name]
+        new = target.__new__(target)
+        memo[id(obj)] = new
+        new.__dict__.update({name: twin(v, root, memo)
+                             for name, v in vars(obj).items()})
+        return new
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return cls(twin(v, root, memo) for v in obj)
+    if isinstance(obj, dict):
+        return cls((twin(a, root, memo), twin(b, root, memo))
+                   for a, b in obj.items())
+    return obj
