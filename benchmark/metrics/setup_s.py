@@ -1,0 +1,5 @@
+"""End to end: process start to the end of the warm-up (host clock)."""
+
+
+def read(run):
+    return run.setup_s
