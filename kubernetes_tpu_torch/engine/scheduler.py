@@ -108,11 +108,15 @@ def _queue_copy(pod: Pod) -> Pod:
     gave (both are shallow) at a fraction of the construction cost, which
     the 20k+/s arrival path pays per pod. The Pod.key memo travels
     deliberately (name/namespace are immutable identity), but the CLASS-
-    KEY memo is dropped so the state/classes.py contract stays intact:
-    spec mutations on one object can never carry a stale class key onto
-    another across the watch→queue hop."""
+    KEY memo (`_class_key`, the interned key, and `_class_node`, the
+    node_name it was built under) is dropped so the state/classes.py
+    contract stays intact: spec mutations on one object can never carry a
+    stale class key onto another across the watch→queue hop. The copy's
+    first keying resolves to the same shared key object."""
     c = copy.copy(pod)
-    c.__dict__.pop("_class_key", None)
+    d = c.__dict__
+    d.pop("_class_key", None)
+    d.pop("_class_node", None)
     return c
 
 
@@ -453,8 +457,9 @@ class Scheduler:
         """Admit a run of fresh pending pods columnar: one bookkeeping
         pass, one queue lock (queue.add_many). Per-pod semantics identical
         to _on_pod_event's ADDED-unbound branch; the queue copies are
-        shallow (copy.copy), which also carries the Pod.key/_class_key
-        memos forward instead of re-deriving them per admission.
+        shallow (_queue_copy), which carries the Pod.key memo forward
+        instead of re-deriving it per admission and drops the class-key
+        memo, whose rebuild resolves to the shared interned key.
         Idempotent per pod (queue dedup + setdefault), so a retried sync()
         may safely re-apply. One clock read for the whole run: the stamps
         feed the metrics distribution, and sync() runs per wave — finer

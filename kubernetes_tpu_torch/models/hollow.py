@@ -52,14 +52,16 @@ def _stamp(p: Pod, name: str, prefix: str,
            labels: Optional[Dict[str, str]] = None) -> Pod:
     """Fresh per-pod identity on a shallow template copy (name, uid,
     labels, annotations); spec members stay shared with the template.
-    The '_class_key' pop is LOAD-BEARING: a copied template would
+    The class-key memo pops are LOAD-BEARING: a copied template would
     otherwise keep the template's memoized class key and silently
     misclassify every pod of the profile."""
     p.name = name
     p.uid = prefix + name
     p.labels = {} if labels is None else labels
     p.annotations = {}
-    p.__dict__.pop("_class_key", None)
+    d = p.__dict__
+    d.pop("_class_key", None)
+    d.pop("_class_node", None)
     return p
 
 

@@ -24,6 +24,7 @@ import numpy as np
 
 from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.state.snapshot import ClusterSnapshot, PodBatch
+from kubernetes_tpu_torch.utils.trace import COUNTERS
 
 
 def _canon_reqs(reqs) -> tuple:
@@ -90,25 +91,51 @@ def _canon_container(c) -> tuple:
             else ())
 
 
+# Canonical keys by value: equal specs resolve to one shared tuple, so a
+# pod's memo holds a reference instead of a nested tuple of its own.
+# Cleared when full, so all-distinct specs never grow it past the bound.
+# Threads racing on it can cost sharing, never correctness: the key a
+# pod gets always equals the one built for it.
+_INTERN_MAX = 4096
+_INTERN: Dict[tuple, tuple] = {}
+_UNSET = object()
+
+
 def pod_class_key(pod: Pod) -> tuple:
     """Canonical spec tuple covering every field read by tensorization
     (snapshot.PodBatch), the kernels, and host-path routing. Name/uid/rv are
     deliberately excluded — identity never affects placement.
 
-    Memoized per pod object: building the nested tuple costs ~6us and the
-    drain keys 30k pods per round. The only spec field the scheduler
-    mutates IN PLACE after keying is node_name (engine assume), so the
-    cache is guarded on its identity; every other mutation path in the
-    control plane goes through dataclasses.replace / fresh decode — and
-    the one shallow-copy hop (scheduler._queue_copy, the arrival-storm
-    queue admission) DROPS this memo explicitly — so a stale class key
-    never crosses an object boundary."""
-    cached = pod.__dict__.get("_class_key")
-    if cached is not None and cached[0] is pod.node_name:
-        return cached[1]
+    Interned: equal keys are one tuple object (`_INTERN`, at most
+    `_INTERN_MAX` keys, cleared when full), so the fresh tuples of a pod
+    whose spec was seen before die in this call instead of living as long
+    as the pod. Each build counts `classes.key_intern_hit` or
+    `classes.key_intern_miss`; a memo hit counts nothing.
+
+    Memoized per pod object in two entries of its __dict__: `_class_key`,
+    the interned key, and `_class_node`, the node_name it was built under.
+    Building the nested tuple costs ~6us and the drain keys 30k pods per
+    round. The only spec field the scheduler mutates IN PLACE after keying
+    is node_name (engine assume), so the memo is guarded on its identity;
+    every other mutation path in the control plane goes through
+    dataclasses.replace / fresh decode — and the shallow-copy hops
+    (scheduler._queue_copy, models/hollow's template copies) DROP the memo
+    explicitly. `_class_key` carries it: without that entry the memo is a
+    miss whatever `_class_node` holds, so a stale class key never crosses
+    an object boundary."""
+    d = pod.__dict__
+    key = d.get("_class_key")
+    if key is not None and d.get("_class_node", _UNSET) is pod.node_name:
+        return key
     key = _pod_class_key(pod)
-    pod.__dict__["_class_key"] = (pod.node_name, key)
-    return key
+    if len(_INTERN) >= _INTERN_MAX:
+        _INTERN.clear()
+    canon = _INTERN.setdefault(key, key)
+    COUNTERS.inc("classes.key_intern_miss" if canon is key
+                 else "classes.key_intern_hit")
+    d["_class_node"] = pod.node_name
+    d["_class_key"] = canon
+    return canon
 
 
 def _pod_class_key(pod: Pod) -> tuple:
