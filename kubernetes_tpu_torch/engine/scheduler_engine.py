@@ -806,6 +806,27 @@ def _aff_node_views(adata, snap):
     return key_node.reshape(C, A, n), static_hit
 
 
+def _node_forbid(enc) -> np.ndarray:
+    """Forbid counts [C, N] of the per-node anti mask against the
+    encoding's occupancy carry: waves._wave_aff_mask on the host (own
+    terms and symmetry, float64 products exact for these counts) plus the
+    static forbid and the foreign overlay. A node is forbidden for class
+    c where its count is above 0."""
+    forb = enc.static_forbid_hit.astype(np.float64)
+    if enc.foreign_forbid is not None:
+        forb = forb + enc.foreign_forbid
+    if enc.committed_nodes.any():
+        ad = enc.adata
+        cn = enc.committed_nodes.astype(np.float64)
+        C_, A_ = ad.m_anti.shape[:2]
+        m2 = ad.m_anti.reshape(C_ * A_, C_).astype(np.float64)
+        kn = enc.key_node.reshape(C_ * A_, -1)                # [C*A, N]
+        occ = (m2 @ cn).reshape(C_, A_, -1)
+        forb = forb + (occ * enc.key_node).sum(axis=1)        # own
+        forb = forb + m2.T @ (kn * np.repeat(cn, A_, axis=0))  # symmetry
+    return forb
+
+
 def _aff_tail_cols(adata, prio_on: bool) -> np.ndarray:
     """Label columns the SEEDED STRICT TAIL can actually read: domains of
     the wave_strict classes' own terms (allow + anti + static rows), of
@@ -2130,29 +2151,32 @@ class SchedulingEngine:
             # every wholesale AffinityData build the patch paths could NOT
             # absorb
             COUNTERS.inc("engine.aff_full_rebuilds")
-            adata = aff_ops.AffinityData(batch.reps, snap, all_pairs,
-                                         aff_pairs, workloads_now,
-                                         self.hard_pod_affinity_weight,
-                                         c_pad=c_pad)
-            host_exact[:n_cls] |= adata.overflow[:n_cls]
-            fits_on = bool(adata.fits_needed)
-            prio_on = bool(w_ip) and bool(adata.prio_needed)
-            spread_on = bool(w_sp) and bool(adata.spread_needed)
-            if fits_on:
-                key_node, static_forbid_hit = _aff_node_views(adata, snap)
-                # static per encoding — the frozen seam, like the tail;
-                # node-axis members shard over the resident mesh
-                aff_wave_dev = {
-                    k: sanitize.upload_frozen(a, self.device,
-                                              self._aff_placement(k))
-                    for k, a in (("m_anti", adata.m_anti),
-                                 ("key_node", key_node),
-                                 ("static_forbid", static_forbid_hit),
-                                 ("wave_gate", adata.wave_gate))}
-            if fits_on or prio_on or spread_on:
-                tail_cols = _aff_tail_cols(adata, prio_on)
-                aff_tail_dev = _aff_tail_arrays(adata, snap, tail_cols,
-                                                self.device, self.mesh)
+            with timed_span("pipeline.aff_build"):
+                adata = aff_ops.AffinityData(batch.reps, snap, all_pairs,
+                                             aff_pairs, workloads_now,
+                                             self.hard_pod_affinity_weight,
+                                             c_pad=c_pad)
+                host_exact[:n_cls] |= adata.overflow[:n_cls]
+                fits_on = bool(adata.fits_needed)
+                prio_on = bool(w_ip) and bool(adata.prio_needed)
+                spread_on = bool(w_sp) and bool(adata.spread_needed)
+                if fits_on:
+                    with timed_span("pipeline.aff_node_views"):
+                        key_node, static_forbid_hit = _aff_node_views(
+                            adata, snap)
+                    # static per encoding — the frozen seam, like the
+                    # tail; node-axis members shard over the resident mesh
+                    aff_wave_dev = {
+                        k: sanitize.upload_frozen(a, self.device,
+                                                  self._aff_placement(k))
+                        for k, a in (("m_anti", adata.m_anti),
+                                     ("key_node", key_node),
+                                     ("static_forbid", static_forbid_hit),
+                                     ("wave_gate", adata.wave_gate))}
+                if fits_on or prio_on or spread_on:
+                    tail_cols = _aff_tail_cols(adata, prio_on)
+                    aff_tail_dev = _aff_tail_arrays(adata, snap, tail_cols,
+                                                    self.device, self.mesh)
         COUNTERS.inc("engine.wave_encode_build")
         cls_arr = preds.pod_arrays_padded(rb, c_pad, self.device)
         if host_fit_rows:
@@ -2320,6 +2344,18 @@ class SchedulingEngine:
                     if strict_idx.size:
                         COUNTERS.inc("engine.affinity_strict_tail",
                                      int(strict_idx.size))
+                    # rows the device's one-pod-per-node-per-wave gate
+                    # holds: a self-anti class riding the wave
+                    COUNTERS.inc("engine.wave_gate_rows",
+                                 int((enc.adata.wave_gate[pc] & act[:n])
+                                     .sum()))
+                    # (class, node) cells the first wave's mask forbids to
+                    # the classes riding it: what the bound pods and the
+                    # occupancy carry rule out before this dispatch commits
+                    wave_cls = np.unique(pc[act[:n]])
+                    COUNTERS.inc("engine.wave_forbid_cells",
+                                 int((_node_forbid(enc)[wave_cls] > 0)
+                                     .sum()) if wave_cls.size else 0)
                 pre = self._tail_wave_pre(enc, nodes)
             with timed_span("pipeline.launch"):
                 if self._worker is None:
@@ -2380,14 +2416,17 @@ class SchedulingEngine:
         packed_h = handle.packed_h
         # the per-wave device->host payload: [3P+2] int32 regardless of N
         COUNTERS.inc("engine.host_fetch_bytes", int(packed_h.nbytes))
+        # inner wave iterations the job ran (packed[3P+1]), read off the
+        # payload already on the host
+        waves_used = int(packed_h[3 * p_pad + 1])
+        COUNTERS.inc("engine.inner_waves", waves_used)
         if self.mesh is not None:
             # traffic of the two-stage winner reduce: each INNER wave
             # iteration's cross-shard stage moves the [D, C] tie-count
-            # table plus O(P) candidate combines — scaled by waves_used
-            # (packed[3P+1]), not per dispatch
+            # table plus O(P) candidate combines — scaled by waves_used,
+            # not per dispatch
             COUNTERS.inc("engine.reduce_candidate_rows",
-                         self.mesh.size * enc.c_pad
-                         * int(packed_h[3 * p_pad + 1]))
+                         self.mesh.size * enc.c_pad * waves_used)
         sel = packed_h[:n].copy()
         fc = packed_h[p_pad:p_pad + n].copy()
         act = packed_h[2 * p_pad:2 * p_pad + n].astype(bool)
@@ -2816,18 +2855,7 @@ class SchedulingEngine:
             return rel.copy(), True
         snap = self.snapshot
         cn = enc.committed_nodes.astype(np.float64)           # [C, N]
-        C_, A_ = ad.m_anti.shape[:2]
-        m2 = ad.m_anti.reshape(C_ * A_, C_).astype(np.float64)
-        kn = enc.key_node.reshape(C_ * A_, -1)                # [C*A, N]
-        # anti side, per-node form (float64 products — exact for these
-        # counts)
-        occ = (m2 @ cn).reshape(C_, A_, -1)
-        own_forb = (occ * enc.key_node).sum(axis=1)           # [C, N]
-        sym = (m2.T @ (kn * np.repeat(cn, A_, axis=0)))       # [C, N]
-        forb = own_forb + sym + enc.static_forbid_hit
-        if enc.foreign_forbid is not None:
-            forb = forb + enc.foreign_forbid
-        aff_bad = forb[cls_rows, gnode] > 0
+        aff_bad = _node_forbid(enc)[cls_rows, gnode] > 0
         cols = enc.tail_cols
         lab_p = cd = None
         if cols is not None and cols.size:
