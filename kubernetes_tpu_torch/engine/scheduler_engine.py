@@ -781,29 +781,27 @@ def evaluate_pods_batch(pods: Sequence[Pod], infos, snap: ClusterSnapshot,
 # ---------------------------------------------------------------------------
 
 
-def _aff_node_views(adata, snap):
-    """(key_node [C, A, N] int8, static_forbid_hit [C, N] int8): the
+def _aff_node_views(adata, nz_rows, nz_cols, n):
+    """(key_node [C, A, n] int8, static_forbid_hit [C, n] int8): the
     per-NODE projections of the anti-term keymasks and static forbid rows.
     Wave-eligible classes have singleton domains, so "node n is in a
     forbidden domain of term (c, a)" reduces to "a matching pod sits ON n
     and n carries the term's key" — these two views are all the per-wave
-    mask needs, and neither carries the label axis. Computed once per
-    encoding build as dense float64 products restricted to the NONZERO rows
-    (counts far below 2^53 — exact)."""
-    lab_t = snap.labels.astype(np.float64).T              # [L, N]
+    mask needs, and neither carries the label axis. (nz_rows, nz_cols) are
+    the nonzeros of n node rows' labels: a node's cell is 1 iff one of its
+    columns is set in the term row, so each nonzero term row costs one
+    pass over the nonzeros. The build passes the whole matrix's
+    (ClusterSnapshot.label_nonzeros), a relabel patch its touched rows'."""
     C, A, L = adata.anti_keymask.shape
-    n = lab_t.shape[1]
-    km = adata.anti_keymask.reshape(C * A, L)
-    key_node = np.zeros((C * A, n), dtype=np.int8)
-    rows = np.nonzero(km.any(axis=1))[0]
-    if rows.size:
-        key_node[rows] = (km[rows].astype(np.float64) @ lab_t) > 0
-    fs = adata.forbid_static
-    static_hit = np.zeros((C, n), dtype=np.int8)
-    frows = np.nonzero(fs.any(axis=1))[0]
-    if frows.size:
-        static_hit[frows] = (fs[frows].astype(np.float64) @ lab_t) > 0
-    return key_node.reshape(C, A, n), static_hit
+    COUNTERS.inc("engine.aff_view_nnz", int(nz_cols.size))
+
+    def hits(terms):
+        out = np.zeros((terms.shape[0], n), dtype=np.int8)
+        for r in np.nonzero(terms.any(axis=1))[0]:
+            out[r, nz_rows[terms[r, nz_cols] != 0]] = 1
+        return out
+    key_node = hits(adata.anti_keymask.reshape(C * A, L))
+    return key_node.reshape(C, A, n), hits(adata.forbid_static)
 
 
 def _node_forbid(enc) -> np.ndarray:
@@ -1894,8 +1892,9 @@ class SchedulingEngine:
         cols = enc.tail_cols
         if cols is None:
             return np.zeros(0, dtype=bool)
-        lab = self.snapshot.labels[:, cols] > 0                 # [N, Lp]
-        private = lab[n_idx] & (lab.sum(axis=0) == 1)
+        snap = self.snapshot
+        private = ((snap.labels[n_idx, cols] > 0)
+                   & (snap.domain_node_counts()[cols] == 1))
         if enc.foreign_forbid_dom is not None:
             enc.foreign_forbid_dom[:, private] = 0
         return private
@@ -1979,18 +1978,15 @@ class SchedulingEngine:
                 if hit.size and np.any(
                         snap.domain_node_counts()[hit] > 1):
                     return False
-            C_, A_, L_ = km.shape
-            lab_t = snap.labels[rows].astype(np.float64).T  # [L, r]
-            kn_rows = ((km.reshape(C_ * A_, L_).astype(np.float64) @ lab_t)
-                       > 0).reshape(C_, A_, len(rows))
+            kn_rows, sfh_rows = _aff_node_views(
+                ad, *np.nonzero(snap.labels[rows]), len(rows))
             # copy-on-write: earlier uploads were copies anyway, but the
             # fence reads these arrays between patches
             key_node = enc.key_node.copy()
-            key_node[:, :, rows] = kn_rows.astype(np.int8)
+            key_node[:, :, rows] = kn_rows
             enc.key_node = key_node
             sfh = enc.static_forbid_hit.copy()
-            sfh[:, rows] = ((ad.forbid_static.astype(np.float64) @ lab_t)
-                            > 0).astype(np.int8)
+            sfh[:, rows] = sfh_rows
             enc.static_forbid_hit = sfh
             enc.aff_patch_dirty = True
         if enc.tail_cols is not None and enc.aff_tail_dev is not None:
@@ -2163,7 +2159,8 @@ class SchedulingEngine:
                 if fits_on:
                     with timed_span("pipeline.aff_node_views"):
                         key_node, static_forbid_hit = _aff_node_views(
-                            adata, snap)
+                            adata, *snap.label_nonzeros(),
+                            snap.labels.shape[0])
                     # static per encoding — the frozen seam, like the
                     # tail; node-axis members shard over the resident mesh
                     aff_wave_dev = {

@@ -178,6 +178,15 @@ class ClusterSnapshot:
         # touched ROWS instead of rebuilding wholesale. Bounded ring;
         # a consumer further behind than the ring rebuilds.
         self._labels_log: List[Tuple[int, int]] = []
+        # the label matrix's nonzeros, kept equal to `labels` by every
+        # writer of it: (row, col) int64 pairs in row-major order and the
+        # nodes on each column. With one column per hostname the matrix
+        # is N x N at about two nonzeros a row, so readers that want only
+        # the incidence (the wave encoding's topology views,
+        # domain_node_counts) walk these instead of the dense cells.
+        self._label_nz_rows = np.zeros(0, dtype=np.int64)
+        self._label_nz_cols = np.zeros(0, dtype=np.int64)
+        self._label_col_nodes = np.zeros(0, dtype=np.int64)
         self.dirty: set = set()
         # ROW-granular dirt for the DYNAMIC arrays (requested/nonzero/
         # pod_count), consumed by the sharded device sync: a
@@ -734,6 +743,7 @@ class ClusterSnapshot:
         self.mem_pressure = np.zeros(n, dtype=bool)
         self.disk_pressure = np.zeros(n, dtype=bool)
         self.labels = np.zeros((n, l), dtype=np.int8)
+        self._index_labels(np.zeros((0, 2), dtype=np.int64))
         self.taints_sched = np.zeros((n, t), dtype=np.int8)
         self.taints_pref = np.zeros((n, t), dtype=np.int8)
         self.port_bitmap = np.zeros((n, PORT_WORDS), dtype=np.uint32)
@@ -894,9 +904,23 @@ class ClusterSnapshot:
                  for idx in (self.label_vocab.get(k, v)
                              for k, v in lbls.items())
                  if idx >= 0]
-        if pairs:
-            hostops.fill_multi_hot(np.asarray(pairs, dtype=np.int64),
-                                   self.labels)
+        pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        if pairs.size:
+            hostops.fill_multi_hot(pairs, self.labels)
+        self._index_labels(pairs)
+
+    def _index_labels(self, pairs: np.ndarray) -> None:
+        """Set the nonzero index to the (row, col) `pairs` [K, 2] just
+        written into an all-zero label matrix, less what fill_multi_hot
+        drops: columns past a width that has not caught up with the
+        vocab yet."""
+        n, w = self.labels.shape
+        r, c = pairs[:, 0], pairs[:, 1]
+        ok = (r < n) & (c < w)
+        lin = np.unique(r[ok] * w + c[ok])          # sorted: row-major
+        self._label_nz_rows, self._label_nz_cols = np.divmod(lin, w)
+        self._label_col_nodes = np.bincount(self._label_nz_cols,
+                                            minlength=w).astype(np.int64)
 
     def _write_taint_row(self, i: int, node) -> None:
         for t in node.taints:
@@ -1075,7 +1099,21 @@ class ClusterSnapshot:
             if len(self._labels_log) >= 2 * self.LABELS_LOG_MAX:
                 del self._labels_log[:len(self._labels_log)
                                      - self.LABELS_LOG_MAX]
+            # splice row i's entries of the index, O(nnz)
+            self._label_col_nodes[changed] += \
+                lbl[changed].astype(np.int64) - self.labels[i, changed]
+            new = np.nonzero(lbl)[0]
+            rows, cols = self._label_nz_rows, self._label_nz_cols
+            lo, hi = np.searchsorted(rows, (i, i + 1))
+            self._label_nz_rows = np.concatenate(
+                (rows[:lo], np.full(new.size, i, dtype=np.int64), rows[hi:]))
+            self._label_nz_cols = np.concatenate((cols[:lo], new, cols[hi:]))
         self.labels[i] = lbl
+
+    def label_nonzeros(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The label matrix's nonzeros as (row, col) int64 arrays in
+        row-major order: np.nonzero(labels), read off the kept index."""
+        return self._label_nz_rows, self._label_nz_cols
 
     def labels_rows_since(self, gen: int) -> Optional[List[tuple]]:
         """(row, changed_columns) entries after `gen` (rows may repeat),
@@ -1132,10 +1170,11 @@ class ClusterSnapshot:
         tail. Column indices are PREFIX-STABLE across vocab growth (Vocab
         appends, finalize_labels rebuilds content but never reorders), which
         is also what lets the harvest fence slice live arrays down to an
-        older encoding's width."""
+        older encoding's width. Read off the kept index: O(L), not a sum
+        over the N x L cells."""
         if getattr(self, "labels", None) is None:
             return np.zeros(0, dtype=np.int64)
-        return self.labels.sum(axis=0, dtype=np.int64)
+        return self._label_col_nodes.copy()
 
     def _rebuild_label_index(self, infos: Dict[str, NodeInfo],
                              names: List[str]) -> None:
