@@ -3964,7 +3964,6 @@ def scale_drain(mods, n_devices, spy):
         cache, mesh=mesh_mod.make_mesh(n_devices) if n_devices > 1
         else None)
     engine.track_dirty = True
-    engine.wave_pad_floor = SCALE_CHUNK
     pending = hollow.PROFILES["density"](N_PODS)
     bound, unsched, blocks, prev = {}, 0, [], None
     torch.cuda.synchronize()
@@ -6803,7 +6802,8 @@ def resident_check(eng, dev, width, tag, in_dispatch):
         if enc.aff_patch_dirty or enc.labels_gen != snap.labels_gen:
             fail(f"{tag}: a dispatch synced with its encoding's patches "
                  f"unflushed or its labels stale")
-        key_node, sfh = _aff_node_views(enc.adata, snap)
+        key_node, sfh = _aff_node_views(enc.adata, *snap.label_nonzeros(),
+                                        snap.labels.shape[0])
         merged = sfh.astype(np.int32)
         if enc.foreign_forbid is not None:
             merged = merged + enc.foreign_forbid

@@ -1373,8 +1373,6 @@ class Scheduler:
         confirmation are preserved by re-adding only confirmed state."""
         self.cache = SchedulerCache(ttl_seconds=self.cache._ttl, now=self._now)
         self._workloads = {}
-        pad_floor = self.engine.wave_pad_floor  # a live pipeline's
-        # padded-shape pin must survive the engine swap
         self.engine.close()
         self.engine = SchedulingEngine(
             self.cache, priorities=self.engine.priorities,
@@ -1382,7 +1380,6 @@ class Scheduler:
             workloads_provider=lambda: list(self._workloads.values()),
             policy_algos=self._policy_algos, mesh=self.engine.mesh)
         self.engine.track_dirty = True
-        self.engine.wave_pad_floor = pad_floor
         self.queue = SchedulingQueue(now=self._now)
         self._pods = {}
         self._gang_waiting = {}

@@ -889,8 +889,9 @@ class _WaveEncoding:
     """Device-resident class encoding reused across pipelined drain chunks.
 
     A 30k-pod storm arrives as a few pipelined chunks of the SAME handful
-    of spec classes; this caches the padded class tensors keyed on
-    snapshot.vocab_gen plus the host rows the harvest fence reads.
+    of spec classes; this caches the class tensors (the live classes and
+    one sink row) keyed on snapshot.vocab_gen plus the host rows the
+    harvest fence reads.
     Affinity chunks add the AffinityData for the class set (its STATIC
     topology arrays vs already-bound cluster pods) plus a host accumulator
     committed_nodes [C, N] of this engine's OWN fence-accepted commits
@@ -902,7 +903,7 @@ class _WaveEncoding:
 
     __slots__ = ("vocab_gen", "labels_gen", "key_index", "reps", "cls_arr",
                  "num_classes",
-                 "c_pad", "req_rows", "special", "derived", "ports_max",
+                 "c_pad", "req_rows", "special", "derived", "ports",
                  "raw_rows", "delta_ok", "cls_prio", "adata", "wave_strict",
                  "fits_on", "prio_on", "aff_seq",
                  "committed_nodes", "key_node", "static_forbid_hit",
@@ -913,7 +914,7 @@ class _WaveEncoding:
                  "wkey", "has_static_cols")
 
     def __init__(self, vocab_gen, key_index, reps, cls_arr, num_classes,
-                 c_pad, req_rows, special, derived, ports_max,
+                 c_pad, req_rows, special, derived, ports,
                  adata=None, fits_on=False, prio_on=False,
                  aff_seq=0, aff_wave_dev=None,
                  aff_tail_dev=None, key_node=None, static_forbid_hit=None,
@@ -932,14 +933,14 @@ class _WaveEncoding:
         self.req_rows = req_rows      # [C, R] int64, snapshot-quantized
         self.special = special        # [C] bool: ports/volumes classes
         self.derived = derived        # per-class (Resource, ncpu, nmem, ports)
-        self.ports_max = ports_max    # highest requested host port, or -1
+        self.ports = ports            # requested host ports, -1 for none
         self.adata = adata            # AffinityData at c_pad, or None
         self.fits_on = fits_on        # required (anti-)affinity live
         self.prio_on = prio_on        # preferred-affinity scoring live
         self.wave_strict = adata.wave_strict if adata is not None \
             else np.zeros(c_pad, dtype=bool)
         # host-check / Policy absorption: host_exact classes ride the wave
-        # as inactive padding-class rows and place at the harvest's exact
+        # as inactive sink-class rows and place at the harvest's exact
         # oracle tail (live-NodeInfo ports, score-affecting preference
         # overflow, Policy order-dependence, affinity slot overflow);
         # host_static classes carry a precomputed exact label-pure fit
@@ -1013,14 +1014,13 @@ class WaveHandle:
     computes while the host does the previous wave's bookkeeping."""
 
     __slots__ = ("pods", "pc", "enc", "job", "nodes", "blind", "pop_ts",
-                 "dispatch_ts", "pad_floor", "strict_idx", "gangs",
+                 "dispatch_ts", "strict_idx", "gangs",
                  "wave_id", "host_idx", "packed_h", "state_out",
                  "committed_out", "counter_out")
 
     def __init__(self, pods, pc, enc, job, nodes, blind, pop_ts,
-                 dispatch_ts, pad_floor=0, strict_idx=None, gangs=None,
+                 dispatch_ts, strict_idx=None, gangs=None,
                  wave_id=-1, host_idx=None):
-        self.pad_floor = pad_floor
         self.pods = pods
         self.pc = pc                  # host int32 [n] class index per pod
         self.enc = enc
@@ -1037,14 +1037,14 @@ class WaveHandle:
         # into `pods`, quorum)] — the harvest's gang fence commits or
         # rolls back each one atomically
         self.gangs = gangs or []
-        # host_exact rows (padding class on the device): placed by the
+        # host_exact rows (the sink class on the device): placed by the
         # harvest's exact oracle tail after the fence
         self.host_idx = host_idx if host_idx is not None \
             else np.empty(0, dtype=np.int64)
         # the wave's id: tags its spans (dispatch, the worker's job,
         # harvest, bind) and its recorder and tracer events
         self.wave_id = wave_id
-        # filled by block(): the packed host result [3P+2] int32, the
+        # filled by block(): the packed host result [3n+2] int32, the
         # final node state, the [C, N] occupancy (affinity waves) and the
         # int64 round-robin counter
         self.packed_h = None
@@ -1130,7 +1130,7 @@ class _WaveWorker:
 
 
 def _wave_job(cls_arr, nodes, state, pc_dev, counter_src, counter0,
-              priorities, extra, aff, committed_dev, act_dev, pre, p_pad,
+              priorities, extra, aff, committed_dev, act_dev, pre,
               spmd_mesh=None):
     """The worker's body for one dispatched wave: the wave loop (the SPMD
     path on a mesh), then its one device->host copy. `counter_src` is the
@@ -1149,7 +1149,7 @@ def _wave_job(cls_arr, nodes, state, pc_dev, counter_src, counter0,
                            pre=pre, spmd_mesh=spmd_mesh)
     packed, state_out = out[0], out[1]
     committed_out = out[2] if aff is not None else None
-    counter_out = packed[3 * p_pad].to(torch.int64) & U32_MASK
+    counter_out = packed[3 * pc_dev.shape[0]].to(torch.int64) & U32_MASK
     return packed.cpu().numpy(), state_out, committed_out, counter_out
 
 
@@ -1237,18 +1237,13 @@ class SchedulingEngine:
         # only when the snapshot marked it dirty)
         self._pre_cache = None
         self._blind_listeners: List[set] = []  # per-inflight-wave touch sets
-        # pod-axis padding floor for dispatch_waves: the pipeline pins this
-        # to its chunk size so ragged pops reuse one padded shape
-        self.wave_pad_floor = 0
         # conflict-round tail: the harvest's seeded strict tail runs as
-        # waves.tail_rounds_loop when the tail is big enough to pay for the
-        # round body; small tails keep the per-pod scan.
-        # GRAFT_TAIL_ROUNDS=0 forces the scan everywhere;
-        # GRAFT_TAIL_ROUNDS_MIN moves the crossover (0 = rounds always).
-        import os as _os
-        self.tail_rounds = _os.environ.get("GRAFT_TAIL_ROUNDS", "1") != "0"
-        self.tail_rounds_min = int(
-            _os.environ.get("GRAFT_TAIL_ROUNDS_MIN", "48"))
+        # waves.tail_rounds_loop when it has at least tail_rounds_min
+        # rows, which pays for the round body; smaller tails keep the
+        # per-pod scan. tail_rounds False forces the scan everywhere (the
+        # tests' oracle for the rounds).
+        self.tail_rounds = True
+        self.tail_rounds_min = 48
         self._worker: Optional[_WaveWorker] = None
 
     def close(self) -> None:
@@ -1285,7 +1280,8 @@ class SchedulingEngine:
             # pod's anti-affinity mentions has no domain columns
             aff_ops.intern_topology_pairs(self.snapshot, pods, aff_pairs)
             batch = ClassBatch(pods, self.snapshot)
-            c_pad = bucket(batch.num_classes + 1)
+            # the live classes plus the one sink row
+            c_pad = batch.num_classes + 1
             adata = aff_ops.AffinityData(batch.reps, self.snapshot,
                                          all_pairs, aff_pairs,
                                          self.workloads_provider(),
@@ -1336,15 +1332,14 @@ class SchedulingEngine:
             kernel_priorities = self.priorities if aff_arrays is not None \
                 else self._kernel_priorities()
             nodes = self._nodes_on_device(
-                port_words=self._port_words(batch))
+                port_words=self._port_words(batch.reps_batch.ports))
         fast_idx = np.nonzero(~nhc)[0]
         slow_idx = np.nonzero(nhc)[0].tolist()
         results: List[Optional[PlacementResult]] = [None] * len(pods)
 
         if len(fast_idx):
-            # the class axis and the pod axis pad to power-of-2 buckets;
-            # padding classes are `impossible` (fit nothing, commit
-            # nothing, no RR ticks) and padding pods map to the first one
+            # the class axis carries one sink row past the live classes:
+            # `impossible` (fits nothing, commits nothing, no RR ticks)
             with timed_span("engine.upload"):
                 cls_arr = preds.pod_arrays_padded(batch.reps_batch, c_pad,
                                                   dev)
@@ -1356,9 +1351,7 @@ class SchedulingEngine:
                     if pscore is not None:
                         cls_arr["policy_score"] = tensor_from_numpy(pscore,
                                                                     dev)
-            pf = len(fast_idx)
-            pc_fast = np.full(bucket(pf), batch.num_classes, dtype=np.int32)
-            pc_fast[:pf] = batch.pod_class[fast_idx]
+            pc_fast = batch.pod_class[fast_idx]
             state = NodeState(nodes["requested"], nodes["nonzero"],
                               nodes["pod_count"], nodes["port_bitmap"],
                               nodes["vol_present"], nodes["vol_rw"],
@@ -1366,12 +1359,11 @@ class SchedulingEngine:
             with timed_span("engine.place"):
                 if mode == "wave":
                     selected, fit_counts, rr_end = self._run_wave(
-                        batch, adata, cls_arr, nodes, state, pc_fast, pf,
-                        aff_arrays, aff_mode, kernel_priorities, weights)
+                        adata, cls_arr, nodes, state, pc_fast, aff_arrays,
+                        aff_mode, kernel_priorities, weights)
                 else:
-                    # the live rows only: a padding row fits nothing
                     sel_d, fc_d, _, rr_d = gather_place_batch(
-                        cls_arr, tensor_from_numpy(pc_fast[:pf], dev), nodes,
+                        cls_arr, tensor_from_numpy(pc_fast, dev), nodes,
                         state,
                         torch.tensor(self.rr.counter & U32_MASK,
                                      dtype=torch.int64, device=dev),
@@ -1379,8 +1371,8 @@ class SchedulingEngine:
                         aff_mode=aff_mode)
                     # the synchronous engine's result fetch: schedule()
                     # owes its caller host placements
-                    selected = sel_d.cpu().numpy()[:pf]
-                    fit_counts = fc_d.cpu().numpy()[:pf]
+                    selected = sel_d.cpu().numpy()
+                    fit_counts = fc_d.cpu().numpy()
                     rr_end = int(rr_d)
             self.rr.counter = int(rr_end)
             with timed_span("engine.assume"):
@@ -1459,8 +1451,8 @@ class SchedulingEngine:
                 ctx.invalidate()
         return out
 
-    def _run_wave(self, batch, adata, cls_arr, nodes, state, pc_fast, pf,
-                  aff_arrays, aff_mode, kernel_priorities, weights):
+    def _run_wave(self, adata, cls_arr, nodes, state, pc_fast, aff_arrays,
+                  aff_mode, kernel_priorities, weights):
         """Wave mode with affinity routing: classes whose REQUIRED
         (anti-)affinity makes placement order-dependent (adata.serialize)
         run through the strict scan AFTER the wave pass — seeded with the
@@ -1475,18 +1467,16 @@ class SchedulingEngine:
             extra = waves.frozen_affinity_scores(
                 cls_arr, nodes, state, aff_arrays,
                 (w_ip if prio_on else 0, w_sp if spread_on else 0))
-        ser = adata.serialize[pc_fast[:pf]]
-        selected = np.full(pf, -1, dtype=np.int32)
-        fit_counts = np.zeros(pf, dtype=np.int32)
+        ser = adata.serialize[pc_fast]
+        selected = np.full(len(pc_fast), -1, dtype=np.int32)
+        fit_counts = np.zeros(len(pc_fast), dtype=np.int32)
         rr = self.rr.counter & U32_MASK
         wave_pos = np.nonzero(~ser)[0]
         strict_pos = np.nonzero(ser)[0]
         state_cur = state
         stats: Dict[str, int] = {}
         if len(wave_pos):
-            wp = len(wave_pos)
-            pcw = np.full(bucket(wp), batch.num_classes, dtype=np.int32)
-            pcw[:wp] = pc_fast[wave_pos]
+            pcw = pc_fast[wave_pos]
             # aff/aff_mode reach only the straggler finish inside
             # place_waves: preferred scoring stays batch-frozen (extra), so
             # prio/spread are off there to avoid counting them twice
@@ -1494,14 +1484,12 @@ class SchedulingEngine:
                 cls_arr, nodes, state_cur, pcw, rr, kernel_priorities,
                 stats=stats, extra_score=extra, aff=aff_arrays,
                 aff_mode=(fits_on, False, False))
-            selected[wave_pos] = sel_w[:wp]
-            fit_counts[wave_pos] = fc_w[:wp]
+            selected[wave_pos] = sel_w
+            fit_counts[wave_pos] = fc_w
         if len(strict_pos):
             sp_n = len(strict_pos)
             COUNTERS.inc("engine.classic_strict_rows", sp_n)
-            # the live rows only: a padding row fits nothing, so it ticks
-            # no counter and commits nothing
-            pcs = np.ascontiguousarray(pc_fast[strict_pos])
+            pcs = pc_fast[strict_pos]
             aff_init = None
             if aff_arrays is not None:
                 c_dim = aff_arrays["m_aff"].shape[0]
@@ -1538,13 +1526,14 @@ class SchedulingEngine:
         self.cache.assume_pod(pod)
         self._touch((node_name,))
 
-    def _port_words(self, batch: ClassBatch) -> int:
+    def _port_words(self, ports: np.ndarray) -> int:
         """Port-bitmap words to ship: the highest word any node uses or any
-        batch pod requests, power-of-2 bucketed."""
+        of the batch's requested `ports` (-1 for none) needs, power-of-2
+        bucketed."""
         max_words = self.snapshot.port_words_used()
-        if np.any(batch.reps_batch.ports >= 0):
-            max_words = max(max_words,
-                            int(batch.reps_batch.ports.max()) // 32 + 1)
+        ports_max = int(ports.max(initial=-1))
+        if ports_max >= 0:
+            max_words = max(max_words, ports_max // 32 + 1)
         return bucket(max(max_words, 1), lo=1)
 
     # ------------------------------------------------- targeted refresh
@@ -2113,7 +2102,8 @@ class SchedulingEngine:
         batch = ClassBatch(seed + list(pods), snap)
         n_cls = batch.num_classes
         rb = batch.reps_batch
-        c_pad = bucket(n_cls + 1)
+        # the live classes plus the one sink row that host-exact pods map to
+        c_pad = n_cls + 1
         # host-check absorption: label-pure host classes get an exact
         # precomputed fit column and ride the wave; the rest (live-NodeInfo
         # ports, score-affecting preference overflow, shapes the column
@@ -2179,7 +2169,7 @@ class SchedulingEngine:
         if host_fit_rows:
             # the host-check static column: exact label-pure fit rows for
             # host_static classes, folded into the [C, N] eval via
-            # predicates.static_fits (padding rows True — the validity
+            # predicates.static_fits (the sink row True — the validity
             # mask already excludes them); a copy, like every upload
             hf = np.ones((c_pad, snap.valid.shape[0]), dtype=bool)
             for c, row in host_fit_rows.items():
@@ -2205,13 +2195,12 @@ class SchedulingEngine:
                       + rb.pd_req[:n_cls].sum(axis=1) > 0))
         derived = [(rep.resource_request(), *rep.nonzero_request(),
                     rep.used_ports()) for rep in batch.reps]
-        ports_max = int(rb.ports.max()) if np.any(rb.ports >= 0) else -1
         # clone the reps for reuse: the originals get node_name assigned at
         # assume time, which would corrupt their class key as seeds
         reps = [_dc.replace(p) for p in batch.reps]
         self._wave_enc = enc2 = _WaveEncoding(
             snap.vocab_gen, key_index, reps, cls_arr, n_cls, c_pad,
-            rb.req[:n_cls].astype(np.int64), special, derived, ports_max,
+            rb.req[:n_cls].astype(np.int64), special, derived, rb.ports,
             adata=adata, fits_on=fits_on, prio_on=prio_on,
             aff_seq=aff_seq0,
             aff_wave_dev=aff_wave_dev, aff_tail_dev=aff_tail_dev,
@@ -2285,21 +2274,17 @@ class SchedulingEngine:
             with timed_span("pipeline.upload"):
                 dev = self.device
                 n = len(pods)
-                p_pad = bucket(max(n, self.wave_pad_floor or 1))
-                pc_pad = np.full(p_pad, enc.num_classes, dtype=np.int32)
-                pc_pad[:n] = pc
+                pc_wave = pc
                 if host_idx.size:
-                    # host_exact rows ride as the PADDING class: impossible on
+                    # host_exact rows ride as the SINK class: impossible on
                     # the device (fit nothing, no RR ticks, retire on the first
                     # wave) — the harvest's exact oracle tail places them
                     # against live NodeInfo truth after the fence
-                    pc_pad[host_idx] = enc.num_classes
+                    pc_wave = pc.copy()
+                    pc_wave[host_idx] = enc.num_classes
                     COUNTERS.inc("engine.wave_host_rows", int(host_idx.size))
-                max_words = self.snapshot.port_words_used()
-                if enc.ports_max >= 0:
-                    max_words = max(max_words, enc.ports_max // 32 + 1)
-                port_words = bucket(max(max_words, 1), lo=1)
-                nodes = dict(self._nodes_on_device(port_words=port_words))
+                nodes = dict(self._nodes_on_device(
+                    port_words=self._port_words(enc.ports)))
                 state = NodeState(nodes["requested"], nodes["nonzero"],
                                   nodes["pod_count"], nodes["port_bitmap"],
                                   nodes["vol_present"], nodes["vol_rw"],
@@ -2324,8 +2309,7 @@ class SchedulingEngine:
                 if enc.fits_on:
                     ser = enc.wave_strict[pc] & ~hx
                     strict_idx = np.nonzero(ser)[0]
-                    act = np.zeros(p_pad, dtype=bool)
-                    act[:n] = ~(ser | hx)
+                    act = ~(ser | hx)
                     act_dev = tensor_from_numpy(act, dev)
                     # committed_nodes uploads as a COPY: the harvest folds
                     # commits into it in place (np.add.at) while this wave's
@@ -2344,12 +2328,11 @@ class SchedulingEngine:
                     # rows the device's one-pod-per-node-per-wave gate
                     # holds: a self-anti class riding the wave
                     COUNTERS.inc("engine.wave_gate_rows",
-                                 int((enc.adata.wave_gate[pc] & act[:n])
-                                     .sum()))
+                                 int((enc.adata.wave_gate[pc] & act).sum()))
                     # (class, node) cells the first wave's mask forbids to
                     # the classes riding it: what the bound pods and the
                     # occupancy carry rule out before this dispatch commits
-                    wave_cls = np.unique(pc[act[:n]])
+                    wave_cls = np.unique(pc[act])
                     COUNTERS.inc("engine.wave_forbid_cells",
                                  int((_node_forbid(enc)[wave_cls] > 0)
                                      .sum()) if wave_cls.size else 0)
@@ -2359,9 +2342,9 @@ class SchedulingEngine:
                     self._worker = _WaveWorker(dev)
                 job = self._worker.submit(functools.partial(
                     _wave_job, enc.cls_arr, nodes, state,
-                    tensor_from_numpy(pc_pad, dev), self._rr_chain,
+                    tensor_from_numpy(pc_wave, dev), self._rr_chain,
                     self.rr.counter, self._kernel_priorities(), extra,
-                    aff, committed_dev, act_dev, pre, p_pad, self.mesh),
+                    aff, committed_dev, act_dev, pre, self.mesh),
                     wave=wave_id)
             self._rr_chain = job
             blind: set = set()
@@ -2376,7 +2359,7 @@ class SchedulingEngine:
                 TRACER.batch_event(podtrace.WAVE_DISPATCHED,
                                    [p.key() for p in pods], a=wave_id)
             return WaveHandle(list(pods), pc, enc, job, nodes, blind,
-                              pop_ts, time.monotonic(), self.wave_pad_floor,
+                              pop_ts, time.monotonic(),
                               strict_idx=strict_idx, gangs=gangs,
                               wave_id=wave_id, host_idx=host_idx)
 
@@ -2403,7 +2386,6 @@ class SchedulingEngine:
             # _fence_affinity requeues every relevant row conservatively
             self._try_patch_foreign(enc)
         n = len(handle.pods)
-        p_pad = bucket(max(n, handle.pad_floor or 1))
         t0 = time.perf_counter()
         with timed_span("pipeline.device_block"):
             # THE pipeline's blessed wait: harvest exists to absorb this
@@ -2411,11 +2393,11 @@ class SchedulingEngine:
             handle.block()
         t_block = time.perf_counter() - t0
         packed_h = handle.packed_h
-        # the per-wave device->host payload: [3P+2] int32 regardless of N
+        # the per-wave device->host payload: [3n+2] int32 regardless of N
         COUNTERS.inc("engine.host_fetch_bytes", int(packed_h.nbytes))
-        # inner wave iterations the job ran (packed[3P+1]), read off the
+        # inner wave iterations the job ran (packed[3n+1]), read off the
         # payload already on the host
-        waves_used = int(packed_h[3 * p_pad + 1])
+        waves_used = int(packed_h[3 * n + 1])
         COUNTERS.inc("engine.inner_waves", waves_used)
         if self.mesh is not None:
             # traffic of the two-stage winner reduce: each INNER wave
@@ -2425,12 +2407,12 @@ class SchedulingEngine:
             COUNTERS.inc("engine.reduce_candidate_rows",
                          self.mesh.size * enc.c_pad * waves_used)
         sel = packed_h[:n].copy()
-        fc = packed_h[p_pad:p_pad + n].copy()
-        act = packed_h[2 * p_pad:2 * p_pad + n].astype(bool)
-        counter_h = int(packed_h[3 * p_pad]) & U32_MASK
+        fc = packed_h[n:2 * n].copy()
+        act = packed_h[2 * n:3 * n].astype(bool)
+        counter_h = int(packed_h[3 * n]) & U32_MASK
         tail_idx = np.nonzero(act)[0]
         if handle.host_idx.size:
-            # host_exact rows retire inactive off the padding class on the
+            # host_exact rows retire inactive off the sink class on the
             # first wave; they never ride the device tail — the exact
             # oracle tail below places them after the fence
             tail_idx = np.setdiff1d(tail_idx, handle.host_idx)
@@ -2637,8 +2619,7 @@ class SchedulingEngine:
         enc = handle.enc
         dev = self.device
         n_tail = len(tail_idx)
-        pcs = np.full(bucket(n_tail), enc.num_classes, dtype=np.int32)
-        pcs[:n_tail] = handle.pc[tail_idx]
+        pcs = handle.pc[tail_idx]
         aff_arrays = None
         aff_init = None
         aff_mode = (False, False, False)
@@ -2672,16 +2653,16 @@ class SchedulingEngine:
                     aff_init=aff_init,
                     pre=self._tail_wave_pre(enc, handle.nodes))
                 packed_th = packed_t.cpu().numpy()
-            p_t = len(pcs)
             sel[tail_idx] = packed_th[:n_tail]
-            fc[tail_idx] = packed_th[p_t:p_t + n_tail]
-            COUNTERS.inc("engine.tail_rounds", int(packed_th[2 * p_t + 1]))
-            return int(packed_th[2 * p_t]) & U32_MASK
-        # per-pod scan (small tails, and GRAFT_TAIL_ROUNDS=0): classic
-        # sequential semantics, over the live rows only
+            fc[tail_idx] = packed_th[n_tail:2 * n_tail]
+            COUNTERS.inc("engine.tail_rounds",
+                         int(packed_th[2 * n_tail + 1]))
+            return int(packed_th[2 * n_tail]) & U32_MASK
+        # per-pod scan (small tails, and tail_rounds off): classic
+        # sequential semantics
         with timed_span("pipeline.tail"):
             sel_s, fc_s, _st, rr_d = gather_place_batch(
-                enc.cls_arr, pcs_dev[:n_tail], handle.nodes,
+                enc.cls_arr, pcs_dev, handle.nodes,
                 handle.state_out, ctr, tail_prios, aff=aff_arrays,
                 aff_mode=aff_mode, aff_init=aff_init)
             sel[tail_idx] = sel_s.cpu().numpy()

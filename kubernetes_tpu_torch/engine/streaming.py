@@ -26,10 +26,7 @@ ScheduleLoop is the one engine for both shapes:
   while full waves finish well under budget (amortizing per-wave fixed
   costs when the stream runs hot) and halves when a wave's latency
   crosses the budget (bounding what one wave can make the next arrival
-  wait for). Pops pad to ``bucket(max(n, min_quantum))`` through the
-  engine's ``wave_pad_floor`` machinery, so the padded-shape set is
-  the log2 ladder between min_quantum and max_quantum — a ragged
-  arrival stream (345, 589, 100, ...) never mints a fresh shape.
+  wait for). Each pop is dispatched at its own size.
 
 Between micro-waves only the delta touches the device (the Firmament
 insight, PAPERS.md §Firmament: incremental re-solve over deltas turns a
@@ -98,12 +95,9 @@ class ScheduleLoop:
             sched.queue.fast_classifier = fastlane.classify
         sched._pipeline = self
         if budget_s is None:
-            # fixed mode: one compiled wave shape per drain — ragged
-            # arrival pops pad up to the chunk bucket instead of
-            # compiling per power-of-2 size
+            # fixed mode: every step admits one chunk
             self.chunk = max(int(chunk or sched.pipeline_chunk), 1)
             self.min_quantum = self.max_quantum = self.quantum = self.chunk
-            sched.engine.wave_pad_floor = self.chunk
         else:
             self.min_quantum = bucket(max(int(min_quantum), 1))
             self.max_quantum = max(bucket(max(int(max_quantum), 1)),
@@ -111,10 +105,6 @@ class ScheduleLoop:
             q = bucket(max(int(chunk), 1)) if chunk else self.min_quantum
             self.quantum = min(max(q, self.min_quantum), self.max_quantum)
             self.chunk = 0
-            # micro-waves share the bucket ladder: every pop pads to
-            # bucket(max(n, min_quantum)), so the compiled-shape set is
-            # bounded at log2(max_quantum / min_quantum) + 1
-            sched.engine.wave_pad_floor = self.min_quantum
         # latency model (streaming mode): EWMA of per-wave pop ->
         # bind-complete wall clock, the exact span an arriving pod adds
         # to the next pod's worst case
@@ -213,7 +203,7 @@ class ScheduleLoop:
             # saturated waves finishing well under budget: the stream is
             # throughput-limited — grow to amortize per-wave fixed costs.
             # Two consecutive signals, so one lucky wave can't thrash the
-            # quantum (each growth step is a fresh compiled shape).
+            # quantum.
             self._grow_streak += 1
             if self._grow_streak >= 2:
                 self.quantum *= 2

@@ -189,7 +189,7 @@ class AffinityData:
     all_pods    [(pod, node)] every bound pod with its node
     aff_pods    subset carrying pod (anti-)affinity (PodsWithAffinity list)
     workloads   Service/RC/RS/StatefulSet selector objects
-    c_pad       padded class-axis size (engine's bucketed class count)
+    c_pad       class-axis size: the classes plus the caller's inert rows
     """
 
     def __init__(self, reps: Sequence[Pod], snap, all_pods, aff_pods,

@@ -69,8 +69,11 @@ def node_arrays(snap, device) -> Arrays:
 
 
 def bucket(n: int, lo: int = 16) -> int:
-    """Power-of-2 shape bucket (kept from the reference so both packages
-    pad every batch axis identically)."""
+    """Power-of-2 shape bucket. It sizes the streaming loop's admission
+    quantum ladder, the port-bitmap word count, and the axes where a
+    parity test compares padded shapes with the reference's (the slot
+    axes of pod_arrays_bucketed; the class axes of evaluate_pods_batch,
+    the preemption scan and the federation router)."""
     p = lo
     while p < n:
         p *= 2

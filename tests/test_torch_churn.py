@@ -297,7 +297,7 @@ def test_relabel_of_unoccupied_node_patches_not_rebuilds(k):
 
 
 class _FakeEngine:
-    wave_pad_floor = 0
+    pass
 
 
 class _FakeSched:

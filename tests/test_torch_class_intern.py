@@ -236,6 +236,7 @@ def test_drain_places_as_the_reference(profile):
     assert port[0] == ref[0]
     assert port[1] == ref[1]
     assert port[2] == ref[2]
+    pipeline._live_rows(port, ref)
     assert hits >= 500
 
 

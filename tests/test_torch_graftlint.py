@@ -510,8 +510,8 @@ def test_gl003_fires_on_ragged_micro_wave_pop(k, tmp_path):
     """ISSUE 7: the micro-wave pop is where the ragged-shape recompile
     storm would creep back in — an arrival loop slicing its pod arrays
     to the data-dependent pop size before a registered jitted entry
-    point must fire GL003; the pad-to-bucket idiom (wave_pad_floor /
-    predicates.bucket, what ScheduleLoop actually rides) stays silent."""
+    point must fire GL003; the pad-to-bucket idiom (predicates.bucket,
+    what the reference's ScheduleLoop rides) stays silent."""
     waves_py = os.path.join(REF_DIR, "engine", "waves.py")
     bad = tmp_path / "ragged_pump.py"
     bad.write_text(textwrap.dedent("""

@@ -1,8 +1,8 @@
 """The port's required anti-affinity on the wave path, held against a
 plain-PyTorch reference written from the v1.7 predicate
-(tests/plain_hostname_anti.py): the per-wave mask (_wave_aff_mask, built
-from AffinityData on the CPU) equals the reference's forbidden nodes wave
-after wave of a drain (and the engine's count of the cells each
+(benchmark/reference/anti_mask.py, the one the benchmark's check uses):
+the per-wave mask (_wave_aff_mask, built from AffinityData on the CPU)
+equals the reference's forbidden nodes wave after wave of a drain (and the engine's count of the cells each
 dispatch's first wave forbids agrees), the one-pod-per-node gate admits
 what the reference's gate admits, and a whole Scheduler drain leaves no
 pod on a node its own terms or another pod's terms forbid.
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference.anti_mask import forbidden, gate_accept, violations
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.engine import waves as twaves
 from kubernetes_tpu_torch.engine.scheduler import Scheduler
@@ -24,7 +25,6 @@ from kubernetes_tpu_torch.engine.scheduler_engine import SchedulingEngine
 from kubernetes_tpu_torch.server.apiserver_lite import ApiServerLite
 from kubernetes_tpu_torch.state.cache import SchedulerCache
 from kubernetes_tpu_torch.utils.trace import COUNTERS
-from tests.plain_hostname_anti import forbidden, gate_accept, violations
 
 HOST = "kubernetes.io/hostname"
 ZONE = "failure-domain.beta.kubernetes.io/zone"
@@ -313,13 +313,3 @@ def test_the_reference_itself():
     assert violations(dom, [(*green, 0)], prior=bound[:1]) == (1, 0)
     assert violations(dom, [(*plain, 0)], prior=bound[:1]) == (0, 0)
 
-
-def test_the_benchmark_holds_the_same_reference():
-    """benchmark/reference/anti_mask.py is this reference, body for body:
-    the card's check and these tests hold the port to one text."""
-    from pathlib import Path
-    root = Path(__file__).resolve().parents[1]
-    mine = (root / "tests" / "plain_hostname_anti.py").read_text()
-    theirs = (root / "benchmark" / "reference" / "anti_mask.py").read_text()
-    assert mine == theirs
-    assert "kubernetes_tpu" not in mine and "jax" not in mine

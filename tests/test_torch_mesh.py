@@ -966,15 +966,14 @@ def _pipelined_ref(tail_rounds):
 
 @pytest.mark.parametrize("route", ["rounds", "scan"])
 @pytest.mark.parametrize("d", TAIL_D)
-def test_pipelined_strict_tail_runs_per_shard(d, route, monkeypatch):
+def test_pipelined_strict_tail_runs_per_shard(d, route):
     """A pipelined drain on a D-shard mesh whose harvests finish a strict
     tail, through the conflict rounds and through the per-pod scan
-    (GRAFT_TAIL_ROUNDS=0): the tail's seed is the wave's sharded per-node
-    occupancy, nothing is assembled, every launch is at N/D, and the
-    placements equal the reference's drain on its 8-device mesh and the
-    port's unsharded drain."""
+    (engine.tail_rounds False, set by _pipelined): the tail's seed is the
+    wave's sharded per-node occupancy, nothing is assembled, every launch
+    is at N/D, and the placements equal the reference's drain on its
+    8-device mesh and the port's unsharded drain."""
     from kubernetes_tpu_torch.engine import scheduler_engine as teng
-    monkeypatch.setenv("GRAFT_TAIL_ROUNDS", "1" if route == "rounds" else "0")
     ref, flat = _pipelined_ref(route == "rounds")
     widths = []
     seeds = []
@@ -1054,13 +1053,13 @@ _CALLERS = {
 @pytest.mark.parametrize("caller", sorted(_CALLERS))
 def test_scan_steps_only_live_rows(caller, sharded, monkeypatch):
     """Each of the scan's four callers (the classic round in strict mode,
-    its wave-mode strict rows, the pipelined drain's per-pod tail and the
-    wave loop's stragglers) hands it the live pods only — no row of the
-    inert padding class — and its result equals the reference's, whose
-    scan steps the padded rows, unsharded and on an 8-shard mesh."""
+    its wave-mode strict rows, the pipelined drain's per-pod tail, with
+    engine.tail_rounds False, and the wave loop's stragglers) hands it the
+    live pods only — no row of the inert sink class — and its result
+    equals the reference's, whose scan steps the padded rows, unsharded
+    and on an 8-shard mesh."""
     from kubernetes_tpu_torch.engine import scheduler_engine as teng
     from kubernetes_tpu_torch.engine import waves as tw
-    monkeypatch.setenv("GRAFT_TAIL_ROUNDS", "0")
     stepped = []
     real = tbatch.gather_place_batch
 

@@ -4,22 +4,31 @@ seeded pods go through both, and the pod->node placements, the drain
 totals and the wave/tail/fence counters must be equal — with the strict
 tail run as conflict rounds and as the per-pod scan, and with overlap on
 and off (overlap=False must give the same placements as overlap=True).
+The port's dispatches carry live rows only, so two counters depart from
+the reference's on purpose, each by an exact rule: a harvest fetches
+[3n+2] int32 for n pods, and a conflict-round tail in which every live
+row places skips the empty round that retires the reference's padding
+rows.
 Also: the blind-window fence cases, and the drain on an 8-shard node-axis
 mesh against the reference's 8-device mesh and the unsharded port."""
 
 import sys
 
+import numpy as np
 import pytest
 
 import kubernetes_tpu.api.types as jt
 import kubernetes_tpu.api.workloads as jw
 import kubernetes_tpu.engine.scheduler as jsched
+import kubernetes_tpu.engine.waves as jwaves
 import kubernetes_tpu.models.hollow as jh
+import kubernetes_tpu.ops.predicates as jpred
 import kubernetes_tpu.server.apiserver_lite as japi
 import kubernetes_tpu.utils.trace as jtrace
 import kubernetes_tpu_torch.api.types as tt
 import kubernetes_tpu_torch.api.workloads as tw
 import kubernetes_tpu_torch.engine.scheduler as tsched
+import kubernetes_tpu_torch.engine.waves as twaves
 import kubernetes_tpu_torch.models.hollow as th
 import kubernetes_tpu_torch.server.apiserver_lite as tapi
 import kubernetes_tpu_torch.utils.trace as ttrace
@@ -29,13 +38,15 @@ REF = (jt, jw, jh, japi, jsched, jtrace)
 PORT = (tt, tw, th, tapi, tsched, ttrace)
 COUNTER_KEYS = (
     "engine.wave_dispatch", "engine.wave_dispatch_pods",
-    "engine.host_fetch_bytes", "engine.wave_encode_build",
+    "engine.wave_encode_build",
     "engine.wave_encode_reuse", "engine.wave_aff_build",
     "engine.affinity_strict_tail", "engine.wave_tail_dispatch",
-    "engine.tail_round_dispatch", "engine.tail_rounds",
+    "engine.tail_round_dispatch",
     "engine.affinity_fence_requeues", "engine.affinity_straggler_requeues",
     "engine.fence_reason_capacity", "engine.fence_reason_affinity",
     "engine.liveness_fence_requeues", "stream.chunk_flush")
+# counters the port departs from on purpose (see _live_rows)
+DEPARTED = ("engine.host_fetch_bytes", "engine.tail_rounds")
 
 
 def _anti(types, app, key):
@@ -99,18 +110,23 @@ def _anti_hosts(types, wl, hollow):
     return nodes, pods, []
 
 
-def _zone_group(types, wl, hollow):
-    nodes = [types.make_node(f"n{i:02d}", cpu=8000, memory=32 * Gi,
-                             pods=110, labels={"host": f"h{i}",
-                                               "zone": f"z{i % 2}"})
-             for i in range(6)]
-    pods = []
-    for i in range(6):
-        p = types.make_pod(f"pack-{i}", cpu=100, memory=128 << 20,
-                           labels={"app": "pack"})
-        p.affinity = _aff(types, "pack", "zone")
-        pods.append(p)
-    return nodes, pods, []
+def _zone_pack(n_pods):
+    def build(types, wl, hollow):
+        nodes = [types.make_node(f"n{i:02d}", cpu=8000, memory=32 * Gi,
+                                 pods=110, labels={"host": f"h{i}",
+                                                   "zone": f"z{i % 2}"})
+                 for i in range(6)]
+        pods = []
+        for i in range(n_pods):
+            p = types.make_pod(f"pack-{i}", cpu=100, memory=128 << 20,
+                               labels={"app": "pack"})
+            p.affinity = _aff(types, "pack", "zone")
+            pods.append(p)
+        return nodes, pods, []
+    return build
+
+
+_zone_group = _zone_pack(6)
 
 
 def _zone_anti_blind(types, wl, hollow):
@@ -130,6 +146,8 @@ def _zone_anti_blind(types, wl, hollow):
 # id -> (builder, chunk, max_batch, run options, checks on the port's run)
 SCENARIOS = {
     "density-96x700": (_profile("density", 96, 700), 128, 0, {}, {}),
+    "density-96x600-ragged": (_profile("density", 96, 600), 256, 0, {},
+                              {}),
     "binpack-96x700": (_profile("binpack", 96, 700), 128, 0, {}, {}),
     "mixed-64x600-default": (_profile("mixed_affinity", 64, 600), 128, 128,
                              {}, {"engine.affinity_strict_tail": 1}),
@@ -149,6 +167,11 @@ SCENARIOS = {
     "zone-group": (_zone_group, 2, 0, {},
                    {"engine.affinity_strict_tail": 6}),
     "zone-anti-blind": (_zone_anti_blind, 1, 1, {}, {}),
+    # round tails with a live row left unplaced, and with no padding rows
+    "zone-anti-rounds": (_zone_anti_blind, 2, 2, {"tail_rounds_min": 1},
+                         {"engine.tail_round_dispatch": 1}),
+    "zone-group-16-rounds": (_zone_pack(16), 16, 16, {"tail_rounds_min": 1},
+                             {"engine.tail_round_dispatch": 1}),
 }
 
 
@@ -173,14 +196,69 @@ def _drain(side, build, chunk, max_batch, overlap=True, tail_rounds=True,
     s.engine.tail_rounds = tail_rounds
     if tail_rounds_min is not None:
         s.engine.tail_rounds_min = tail_rounds_min
-    s.start()
-    trace.COUNTERS.reset()
-    tot = s.run_until_drained(max_batch=max_batch, overlap=overlap)
+    payloads = []
+    if side is PORT:
+        harvest = s.engine.harvest_waves
+
+        def harvest_and_record(handle):
+            out = harvest(handle)
+            payloads.append((len(handle.pods), handle.packed_h.size))
+            return out
+        s.engine.harvest_waves = harvest_and_record
+    # each conflict-round tail: (rows, rounds, selections of its rows)
+    tails = []
+    waves = twaves if side is PORT else jwaves
+    rounds_loop = waves.tail_rounds_loop
+
+    def rounds_and_record(*args, **kw):
+        packed, state = rounds_loop(*args, **kw)
+        got = np.asarray(packed.cpu() if side is PORT else packed)
+        rows = (len(got) - 2) // 2
+        tails.append((rows, int(got[2 * rows + 1]), got[:rows]))
+        return packed, state
+    waves.tail_rounds_loop = rounds_and_record
+    try:
+        s.start()
+        trace.COUNTERS.reset()
+        tot = s.run_until_drained(max_batch=max_batch, overlap=overlap)
+    finally:
+        waves.tail_rounds_loop = rounds_loop
     snap = trace.COUNTERS.snapshot()
     if side is PORT:
         s.engine.close()
     return ({p.key(): p.node_name for p in api.list("Pod")[0]}, tot,
-            {k: snap.get(k, (0, 0.0))[0] for k in COUNTER_KEYS})
+            {k: snap.get(k, (0, 0.0))[0] for k in COUNTER_KEYS},
+            {k: snap.get(k, (0, 0.0))[0] for k in DEPARTED}, payloads,
+            tails)
+
+
+def _live_rows(port, ref):
+    """Each of the port's harvests fetched [3n+2] int32 for its n pods
+    (selection, fit count and activity per pod, the counter, the wave
+    count): 12 bytes per pod harvested plus 8 per harvest. Its conflict-
+    round tails are the reference's, in order, at their live rows: the
+    reference pads a tail of n rows to bucket(n) with rows that fit
+    nothing, which stay active until a round commits nothing. So where
+    every live row places and there are padding rows, the reference runs
+    exactly one empty round more; otherwise the same rounds."""
+    counters, departed, payloads = port[2], port[3], port[4]
+    assert len(payloads) == counters["engine.wave_dispatch"]
+    assert all(size == 3 * n + 2 for n, size in payloads), payloads
+    assert departed["engine.host_fetch_bytes"] == \
+        12 * counters["engine.wave_dispatch_pods"] \
+        + 8 * counters["engine.wave_dispatch"]
+    tails, ref_tails = port[5], ref[5]
+    assert len(tails) == len(ref_tails) \
+        == counters["engine.tail_round_dispatch"]
+    for (n, rounds, sel), (n_ref, ref_rounds, ref_sel) in zip(tails,
+                                                            ref_tails):
+        assert n_ref == jpred.bucket(n)
+        np.testing.assert_array_equal(sel, ref_sel[:n])
+        assert (ref_sel[n:] == -1).all()
+        skipped = int(n_ref > n and bool((sel >= 0).all()))
+        assert rounds == ref_rounds - skipped, (n, n_ref, sel)
+    assert departed["engine.tail_rounds"] == sum(t[1] for t in tails)
+    assert ref[3]["engine.tail_rounds"] == sum(t[1] for t in ref_tails)
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
@@ -195,8 +273,11 @@ def test_pipelined_drain_matches_reference(name):
     # the overlap changes wall clock, never results
     assert seq[0] == port[0]
     assert seq[1] == port[1]
+    _live_rows(port, ref)
+    _live_rows(seq, ref)
     for key, floor in floors.items():
-        assert port[2][key] >= floor, (key, port[2])
+        got = {**port[2], **port[3]}
+        assert got[key] >= floor, (key, got)
     assert port[2]["stream.chunk_flush"] == 0
     assert port[1]["bound"] > 0
 
@@ -205,21 +286,21 @@ def test_fence_cases_hold_their_constraints():
     """The blind-window cases keep the constraint the fence exists for:
     no node over its two-pod capacity, the two port pods on two nodes,
     one anti pod per host, one zone for the group, one pod per zone."""
-    pl, tot, cnt = _drain(PORT, _blind_capacity, 8, 0)
+    pl, tot = _drain(PORT, _blind_capacity, 8, 0)[:2]
     assert tot["bound"] == 32 and tot["fence_requeued"] > 0
     per_node = {}
     for node in pl.values():
         if node:
             per_node[node] = per_node.get(node, 0) + 1
     assert max(per_node.values()) == 2
-    pl, tot, _ = _drain(PORT, _blind_port, 1, 0)
+    pl, tot = _drain(PORT, _blind_port, 1, 0)[:2]
     assert tot["bound"] == 2 and set(pl.values()) == {"n0", "n1"}
-    pl, tot, _ = _drain(PORT, _anti_hosts, 3, 0)
+    pl, tot = _drain(PORT, _anti_hosts, 3, 0)[:2]
     assert tot["bound"] == 8 and len(set(pl.values())) == 8
-    pl, tot, _ = _drain(PORT, _zone_group, 2, 0)
+    pl, tot = _drain(PORT, _zone_group, 2, 0)[:2]
     assert tot["bound"] == 6
     assert len({int(n[1:]) % 2 for n in pl.values()}) == 1
-    pl, tot, _ = _drain(PORT, _zone_anti_blind, 1, 1)
+    pl, tot = _drain(PORT, _zone_anti_blind, 1, 1)[:2]
     assert tot["bound"] == 1 and tot["unschedulable"] == 1
 
 
@@ -274,3 +355,5 @@ def test_mesh_drain_matches_reference_and_unsharded():
     assert port[1] == ref[1] == flat[1]
     assert port[2] == ref[2] == flat[2]
     assert port[1]["bound"] == 600
+    _live_rows(port, ref)
+    assert port[3] == flat[3]
