@@ -96,6 +96,7 @@ from kubernetes_tpu_torch.utils.trace import (
     SCHEDULE_TRACE_THRESHOLD_S,
     Trace,
     clock,
+    freeze_long_lived,
     install_gc_hook,
     timed_span,
 )
@@ -239,7 +240,10 @@ class Scheduler:
     def start(self) -> None:
         """Initial List (reflector handshake): nodes + pods into cache/queue.
         The first start in a process also hooks the collector's passes
-        into the span counters (runtime.gc)."""
+        into the span counters (runtime.gc) and, once the List is in,
+        freezes the heap that is live then (utils.trace.freeze_long_lived:
+        torch, the nodes, the cache), so the drain's full passes walk only
+        what came after."""
         install_gc_hook()
         nodes, _ = self.api.list("Node")
         for n in nodes:
@@ -266,6 +270,7 @@ class Scheduler:
                 self.queue.add(_queue_copy(p))
         self._rv = rv
         self._started = True
+        freeze_long_lived()
 
     def sync(self, wait: float = 0.0) -> int:
         """Drain watch events into cache + queue (the informer event handlers

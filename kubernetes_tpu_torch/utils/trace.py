@@ -272,6 +272,32 @@ def install_gc_hook() -> None:
         gc.callbacks.append(COUNTERS._on_gc)
 
 
+_FROZEN: Optional[int] = None
+
+
+def freeze_long_lived() -> int:
+    """Take the process's long-lived heap out of the collector's passes,
+    once per process (the scheduler's start() calls it): one full
+    collection, so that only objects still reachable are kept, then
+    gc.freeze(). Counts runtime.gc_freeze (1) and
+    runtime.gc_frozen_objects (the frozen count) in COUNTERS; returns
+    that count, on every call. Later calls neither collect nor freeze.
+
+    The cost: frozen objects are still freed by reference counting, but a
+    reference cycle among them that becomes garbage after the freeze is
+    never reclaimed. That is bounded by what was live at the first start:
+    one process's modules, one cluster's node objects, one cache.
+    Everything made after the freeze is collected as before."""
+    global _FROZEN
+    if _FROZEN is None:
+        gc.collect()
+        gc.freeze()
+        _FROZEN = gc.get_freeze_count()
+        COUNTERS.inc("runtime.gc_freeze")
+        COUNTERS.inc("runtime.gc_frozen_objects", _FROZEN)
+    return _FROZEN
+
+
 class timed_span:
     """`with timed_span("extender.refresh"): ...` — count + accumulate, and
     record the interval in COUNTERS' ring. `wave` tags the span (and,
